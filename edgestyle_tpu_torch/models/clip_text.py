@@ -1,0 +1,75 @@
+"""CLIP text encoder (the clip-vit-large-patch14 text tower used by SD1.5).
+
+Counterpart of edgestyle_tpu/models/clip_text.py: 12 layers, width 768,
+12 heads, quick-GELU, causal mask, final LayerNorm; the pipeline consumes
+``last_hidden_state``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from edgestyle_tpu_torch.core.params import param, sub
+from edgestyle_tpu_torch.models.layers import dense, layer_norm_block
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_positions: int = 77
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-5
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _attention(p, x, causal_mask, cfg: CLIPTextConfig, dtype):
+    c, h = cfg.hidden_size, cfg.num_heads
+    d = c // h
+    b, n, _ = x.shape
+    q = dense(sub(p, "q_proj"), x, c, dtype)
+    k = dense(sub(p, "k_proj"), x, c, dtype)
+    v = dense(sub(p, "v_proj"), x, c, dtype)
+    qh, kh, vh = (t.reshape(b, n, h, d).transpose(1, 2) for t in (q, k, v))
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    logits = logits * (d ** -0.5) + causal_mask
+    probs = torch.softmax(logits, dim=-1).to(vh.dtype)
+    out = torch.matmul(probs, vh).transpose(1, 2).reshape(b, n, c)
+    return dense(sub(p, "out_proj"), out, c, dtype)
+
+
+class CLIPTextEncoder:
+    def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig(),
+                 dtype: torch.dtype = torch.float32):
+        self.cfg = cfg
+        self.dtype = dtype
+
+    def __call__(self, p, input_ids: torch.Tensor):
+        """input_ids (B, n) int -> {'last_hidden_state': (B, n, C),
+        'pooled_output': (B, C) at the argmax (EOS) token}."""
+        cfg, dt = self.cfg, self.dtype
+        table = param(sub(p, "token_embedding"), "embedding",
+                      (cfg.vocab_size, cfg.hidden_size), "embed")
+        pos = param(p, "position_embedding", (cfg.max_positions, cfg.hidden_size), "normal0.01")
+        n = input_ids.shape[1]
+        x = table.to(dt)[input_ids] + pos[None, :n].to(dt)
+        mask = torch.triu(torch.full((n, n), float("-inf"), device=x.device), diagonal=1)
+        for i in range(cfg.num_layers):
+            lp = sub(p, f"layers_{i}")
+            x = x + _attention(sub(lp, "self_attn"),
+                               layer_norm_block(sub(lp, "layer_norm1"), x, cfg.layer_norm_eps),
+                               mask[None, None], cfg, dt)
+            hdn = layer_norm_block(sub(lp, "layer_norm2"), x, cfg.layer_norm_eps)
+            hdn = quick_gelu(dense(sub(lp, "fc1"), hdn, cfg.intermediate_size, dt))
+            x = x + dense(sub(lp, "fc2"), hdn, cfg.hidden_size, dt)
+        x = layer_norm_block(sub(p, "final_layer_norm"), x, cfg.layer_norm_eps)
+        eos = input_ids.argmax(dim=-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eos]
+        return {"last_hidden_state": x, "pooled_output": pooled}

@@ -1,0 +1,187 @@
+"""Building blocks of the SD1.5 family (VAE / UNet / ControlNet).
+
+Counterpart of edgestyle_tpu/models/layers.py. Each block is a function of
+its param subtree ``p`` (core/params.py) and its inputs; images are NCHW in
+``channels_last`` memory, token sequences (B, N, C). Types flow as in the
+JAX package: a Dense or conv casts its input and weights to the compute
+``dtype``, norms return their input's dtype, and residual sums promote.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from edgestyle_tpu_torch.core.params import param, sub
+from edgestyle_tpu_torch.ops.attention import multi_head_attention
+from edgestyle_tpu_torch.ops.fused_conv import norm_act_conv3x3
+from edgestyle_tpu_torch.ops.norms import group_norm, layer_norm
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0, max_period: int = 10000):
+    """Sinusoidal embedding (diffusers get_timestep_embedding semantics)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    freqs = torch.exp(exponent)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+# ------------------------------------------------------------ primitives
+def norm_params(p, ch: int):
+    return (param(p, "scale", (ch,), "ones", fp32=True),
+            param(p, "bias", (ch,), "zeros", fp32=True))
+
+
+def dense(p, x: torch.Tensor, features: int, dtype, use_bias: bool = True) -> torch.Tensor:
+    w = param(p, "kernel", (features, x.shape[-1]))
+    b = param(p, "bias", (features,), "zeros") if use_bias else None
+    return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
+
+
+def conv(p, x: torch.Tensor, features: int, kernel_size: int, dtype, stride: int = 1,
+         padding=1, init: str = "lecun") -> torch.Tensor:
+    """nn.Conv counterpart. ``padding``: int (symmetric) or (top, bottom,
+    left, right)."""
+    w = param(p, "kernel", (features, x.shape[1], kernel_size, kernel_size), init)
+    b = param(p, "bias", (features,), "zeros")
+    x = x.to(dtype)
+    if not isinstance(padding, int):
+        top, bottom, left, right = padding
+        x = F.pad(x, (left, right, top, bottom))
+        padding = 0
+    return F.conv2d(x, w.to(dtype), b.to(dtype), stride=stride, padding=padding)
+
+
+def pointwise(p, tokens: torch.Tensor, features: int, dtype) -> torch.Tensor:
+    """A 1x1 conv (OIHW kernel) applied to (B, N, C) tokens."""
+    w = param(p, "kernel", (features, tokens.shape[-1], 1, 1))
+    b = param(p, "bias", (features,), "zeros")
+    return F.linear(tokens.to(dtype), w.flatten(1).to(dtype), b.to(dtype))
+
+
+def to_tokens(x: torch.Tensor) -> torch.Tensor:
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def from_tokens(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    b, _, c = t.shape
+    return t.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def group_norm_block(p, x, num_groups: int = 32, eps: float = 1e-5, act=None):
+    scale, bias = norm_params(p, x.shape[1])
+    return group_norm(x, scale, bias, num_groups, eps, act=act)
+
+
+def layer_norm_block(p, x, eps: float = 1e-5):
+    scale, bias = norm_params(p, x.shape[-1])
+    return layer_norm(x, scale, bias, eps)
+
+
+# ---------------------------------------------------------------- blocks
+def timestep_mlp(p, t_emb, time_embed_dim: int, dtype):
+    """TimestepEmbedding: linear -> silu -> linear."""
+    h = dense(sub(p, "linear_1"), t_emb, time_embed_dim, dtype)
+    h = F.silu(h)
+    return dense(sub(p, "linear_2"), h, time_embed_dim, dtype)
+
+
+def _conv3x3_params(p, cin: int, cout: int):
+    return (param(p, "kernel", (cout, cin, 3, 3)), param(p, "bias", (cout,), "zeros"))
+
+
+def resnet_block(p, x, temb: Optional[torch.Tensor], out_channels: int, dtype,
+                 eps: float = 1e-5, use_time_emb: bool = True):
+    """diffusers ResnetBlock2D: GN->silu->conv, (+time proj), GN->silu->conv,
+    skip (1x1 if channels change). Both GN->silu->conv chains go through
+    ops.fused_conv.norm_act_conv3x3."""
+    in_ch = x.shape[1]
+    g1, b1 = norm_params(sub(p, "norm1"), in_ch)
+    k1, kb1 = _conv3x3_params(sub(p, "conv1"), in_ch, out_channels)
+    h = norm_act_conv3x3(x, g1, b1, k1, kb1, num_groups=32, eps=eps, dtype=dtype)
+    if use_time_emb and temb is not None:
+        t = dense(sub(p, "time_emb_proj"), F.silu(temb), out_channels, dtype)
+        h = h + t[:, :, None, None]
+    g2, b2 = norm_params(sub(p, "norm2"), out_channels)
+    k2, kb2 = _conv3x3_params(sub(p, "conv2"), out_channels, out_channels)
+    h = norm_act_conv3x3(h, g2, b2, k2, kb2, num_groups=32, eps=eps, dtype=dtype)
+    if in_ch != out_channels:
+        x = conv(sub(p, "conv_shortcut"), x, out_channels, 1, dtype, padding=0)
+    return x + h
+
+
+def downsample(p, x, out_channels: int, dtype, asymmetric_pad: bool = False):
+    """Stride-2 3x3 conv; the VAE pads (0,1,0,1), the UNet symmetrically."""
+    pad = (0, 1, 0, 1) if asymmetric_pad else 1
+    return conv(sub(p, "conv"), x, out_channels, 3, dtype, stride=2, padding=pad)
+
+
+def upsample(p, x, out_channels: int, dtype):
+    """Nearest 2x, then a 3x3 conv."""
+    x = F.interpolate(x, scale_factor=2.0, mode="nearest")
+    return conv(sub(p, "conv"), x, out_channels, 3, dtype)
+
+
+def vae_attention(p, x, dtype):
+    """Single-head spatial self-attention of the VAE mid block (the plain
+    attention, as the JAX block forces impl='xla': its head dim of 512 is
+    beyond the flash kernel's)."""
+    b, c, h, w = x.shape
+    y = to_tokens(group_norm_block(sub(p, "group_norm"), x, 32, 1e-6))
+    q = dense(sub(p, "to_q"), y, c, dtype)
+    k = dense(sub(p, "to_k"), y, c, dtype)
+    v = dense(sub(p, "to_v"), y, c, dtype)
+    out = multi_head_attention(q, k, v, num_heads=1)
+    out = dense(sub(p, "to_out"), out, c, dtype)
+    return x + from_tokens(out, h, w)
+
+
+def cross_attention(p, x, context, num_heads: int, dtype):
+    c = x.shape[-1]
+    context = x if context is None else context
+    q = dense(sub(p, "to_q"), x, c, dtype, use_bias=False)
+    k = dense(sub(p, "to_k"), context, c, dtype, use_bias=False)
+    v = dense(sub(p, "to_v"), context, c, dtype, use_bias=False)
+    out = multi_head_attention(q, k, v, num_heads)
+    return dense(sub(p, "to_out"), out, c, dtype)
+
+
+def geglu_ff(p, x, dtype):
+    c = x.shape[-1]
+    h = dense(sub(p, "proj_in"), x, c * 8, dtype)
+    h, gate = h.chunk(2, dim=-1)
+    h = h * F.gelu(gate)  # exact (erf) GELU
+    return dense(sub(p, "proj_out"), h, c, dtype)
+
+
+def transformer_block(p, x, context, num_heads: int, dtype):
+    """LN->self-attn, LN->cross-attn, LN->GEGLU FF, all residual."""
+    x = x + cross_attention(sub(p, "attn1"), layer_norm_block(sub(p, "norm1"), x), None,
+                            num_heads, dtype)
+    x = x + cross_attention(sub(p, "attn2"), layer_norm_block(sub(p, "norm2"), x), context,
+                            num_heads, dtype)
+    return x + geglu_ff(sub(p, "ff"), layer_norm_block(sub(p, "norm3"), x), dtype)
+
+
+def transformer_2d(p, x, context, num_heads: int, dtype, depth: int = 1):
+    """GN -> 1x1 proj_in -> transformer blocks over the h*w tokens -> 1x1
+    proj_out -> residual (SD1.5: use_linear_projection=False, depth 1)."""
+    b, c, h, w = x.shape
+    y = to_tokens(group_norm_block(sub(p, "norm"), x, 32, 1e-6))
+    y = pointwise(sub(p, "proj_in"), y, c, dtype)
+    for i in range(depth):
+        y = transformer_block(sub(p, f"blocks_{i}"), y, context, num_heads, dtype)
+    y = pointwise(sub(p, "proj_out"), y, c, dtype)
+    return from_tokens(y, h, w) + x

@@ -1,0 +1,228 @@
+"""SD1.5 UNet and the ControlNet family.
+
+Counterpart of edgestyle_tpu/models/unet.py. One trunk serves both the
+UNet and the ControlNet (``controlnet_mode``), with the JAX package's
+param names, so a ControlLoRA branch is the UNet's trunk subtree (plus its
+merged LoRA) and its own zero-conv heads: :func:`controllora_params`.
+Methods take the param tree first, like Flax's ``apply``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from edgestyle_tpu_torch.core.params import flatten, sub, unflatten
+from edgestyle_tpu_torch.models.layers import (
+    conv,
+    downsample,
+    group_norm_block,
+    resnet_block,
+    timestep_embedding,
+    timestep_mlp,
+    transformer_2d,
+    upsample,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    num_heads: int = 8
+    norm_eps: float = 1e-5
+    cond_embedding_channels: Tuple[int, ...] = (16, 32, 96, 256)
+    conditioning_channels: int = 3
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+def cond_embedding(p, cond, channels: Sequence[int], out_channels: int, dtype):
+    """ControlNet conditioning embedding: conv stack with stride-2 between
+    channel jumps, zero-initialised 3x3 output conv."""
+    ch = channels
+    x = F.silu(conv(sub(p, "conv_in"), cond, ch[0], 3, dtype))
+    for i in range(len(ch) - 1):
+        x = F.silu(conv(sub(p, f"blocks_{2 * i}"), x, ch[i], 3, dtype))
+        x = F.silu(conv(sub(p, f"blocks_{2 * i + 1}"), x, ch[i + 1], 3, dtype, stride=2))
+    return conv(sub(p, "conv_out"), x, out_channels, 3, dtype, init="zeros")
+
+
+class SD15UNet:
+    """The UNet; with ``controlnet_mode`` the same trunk is a ControlNet:
+    no up path, zero-conv heads, and a conditioning embedding input."""
+
+    def __init__(self, cfg: UNetConfig = UNetConfig(), controlnet_mode: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        self.cfg = cfg
+        self.controlnet_mode = controlnet_mode
+        self.dtype = dtype
+
+    def skip_channels(self):
+        cfg = self.cfg
+        chs = cfg.block_out_channels
+        out = [chs[0]]
+        for i, ch in enumerate(chs):
+            out += [ch] * cfg.layers_per_block
+            if i < len(chs) - 1:
+                out.append(ch)
+        return out
+
+    def _trunk(self, p, sample, timesteps, context, cond_emb=None):
+        cfg, dt = self.cfg, self.dtype
+        chs = cfg.block_out_channels
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        temb = timestep_embedding(timesteps, chs[0])
+        temb = timestep_mlp(sub(p, "time_embedding"), temb.to(dt), cfg.time_embed_dim, dt)
+        context = context.to(dt)
+        x = conv(sub(p, "conv_in"), sample, chs[0], 3, dt)
+        if cond_emb is not None:
+            x = x + cond_emb
+        skips = [x]
+        for i, ch in enumerate(chs):
+            blk = sub(p, f"down_blocks_{i}")
+            last = i == len(chs) - 1
+            for j in range(cfg.layers_per_block):
+                x = resnet_block(sub(blk, f"resnets_{j}"), x, temb, ch, dt)
+                if not last:
+                    x = transformer_2d(sub(blk, f"attentions_{j}"), x, context, cfg.num_heads, dt)
+                skips.append(x)
+            if not last:
+                x = downsample(sub(blk, "downsamplers_0"), x, ch, dt)
+                skips.append(x)
+        mid = sub(p, "mid_block")
+        x = resnet_block(sub(mid, "resnets_0"), x, temb, chs[-1], dt)
+        x = transformer_2d(sub(mid, "attentions_0"), x, context, cfg.num_heads, dt)
+        x = resnet_block(sub(mid, "resnets_1"), x, temb, chs[-1], dt)
+        return x, skips, temb
+
+    def __call__(self, p, sample, timesteps, encoder_hidden_states,
+                 down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
+                 mid_block_additional_residual: Optional[torch.Tensor] = None):
+        """Noise prediction (B, out_channels, h, w) fp32."""
+        if self.controlnet_mode:
+            raise ValueError("use controlnet_forward for a ControlNet")
+        cfg, dt = self.cfg, self.dtype
+        x, skips, temb = self._trunk(p, sample, timesteps, encoder_hidden_states)
+        if down_block_additional_residuals is not None:
+            skips = [s + r for s, r in zip(skips, down_block_additional_residuals)]
+        if mid_block_additional_residual is not None:
+            x = x + mid_block_additional_residual
+        ctx = encoder_hidden_states.to(dt)
+        rev = tuple(reversed(cfg.block_out_channels))
+        n = cfg.layers_per_block + 1
+        for i, ch in enumerate(rev):
+            blk = sub(p, f"up_blocks_{i}")
+            blk_skips, skips = skips[-n:], skips[:-n]
+            for j in range(n):
+                x = torch.cat([x, blk_skips.pop()], dim=1)
+                x = resnet_block(sub(blk, f"resnets_{j}"), x, temb, ch, dt)
+                if i > 0:
+                    x = transformer_2d(sub(blk, f"attentions_{j}"), x, ctx, cfg.num_heads, dt)
+            if i < len(rev) - 1:
+                x = upsample(sub(blk, "upsamplers_0"), x, ch, dt)
+        x = group_norm_block(sub(p, "conv_norm_out"), x, 32, cfg.norm_eps, act=F.silu)
+        x = conv(sub(p, "conv_out"), x, cfg.out_channels, 3, dt)
+        return x.float()
+
+    def embed_cond(self, p, cond):
+        """Raw conditioning image (B, 3, H, W) -> (B, 320, H/8, W/8)."""
+        return cond_embedding(sub(p, "controlnet_cond_embedding"), cond.to(self.dtype),
+                              self.cfg.cond_embedding_channels,
+                              self.cfg.block_out_channels[0], self.dtype)
+
+    def controlnet_forward(self, p, sample, timesteps, encoder_hidden_states, cond_embedding,
+                           conditioning_scale: float = 1.0, guess_mode: bool = False):
+        """ControlNet branch on a precomputed 320-channel cond embedding.
+        Returns (down residuals, mid residual)."""
+        dt = self.dtype
+        x, skips, _ = self._trunk(p, sample, timesteps, encoder_hidden_states,
+                                  cond_emb=cond_embedding)
+        chans = self.skip_channels()
+        down = [conv(sub(p, f"controlnet_down_blocks_{k}"), s, chans[k], 1, dt, padding=0,
+                     init="zeros") for k, s in enumerate(skips)]
+        mid = conv(sub(p, "controlnet_mid_block"), x, self.cfg.block_out_channels[-1], 1, dt,
+                   padding=0, init="zeros")
+        if guess_mode:
+            scales = torch.logspace(-1, 0, len(down) + 1).tolist()
+            scales = [s * conditioning_scale for s in scales]
+        else:
+            scales = [conditioning_scale] * (len(down) + 1)
+        down = [r * s for r, s in zip(down, scales[:-1])]
+        return tuple(down), mid * scales[-1]
+
+
+# ------------------------------------------------------------ ControlLoRA
+LORA_LINEAR_LEAF_NAMES = ("to_q", "to_k", "to_v", "to_out", "proj_in", "proj_out",
+                          "time_emb_proj", "linear_1", "linear_2", "fc1", "fc2")
+TRUNK_KEYS = ("conv_in", "time_embedding", "mid_block")  # + down_blocks_* prefix
+
+
+def is_lora_linear_path(path: Tuple[str, ...]) -> bool:
+    """LoRA targets: linear kernels in attention/ff/time-emb of the trunk."""
+    if not path or path[-1] != "kernel":
+        return False
+    top = path[0]
+    if not (top.startswith("down_blocks_") or top == "mid_block" or top == "time_embedding"):
+        return False
+    return any(path[-2] == n or path[-2].startswith(n) for n in LORA_LINEAR_LEAF_NAMES)
+
+
+def split_trunk_params(unet_params: Dict) -> Dict:
+    """The subtree a ControlLoRA ties to."""
+    return {k: v for k, v in unet_params.items()
+            if k in TRUNK_KEYS or k.startswith("down_blocks_")}
+
+
+def init_lora_params(gen: torch.Generator, trunk_params: Dict, rank: int) -> Dict:
+    """{path: {'down', 'up'}} adapters on every 2-D trunk linear kernel, in
+    the port's (out, in) layout: down (rank, in) ~ N(0, 1/rank) (diffusers
+    LoRALinearLayer), up (out, rank) = 0, fp32."""
+    lora = {}
+    for path, leaf in flatten(trunk_params).items():
+        if is_lora_linear_path(path) and leaf.ndim == 2:
+            dout, din = leaf.shape
+            lora[path] = {
+                "down": torch.randn((rank, din), generator=gen, device=gen.device) / rank,
+                "up": torch.zeros((dout, rank), device=gen.device),
+            }
+    return unflatten(lora)
+
+
+def merge_lora(trunk_params: Dict, lora_params: Dict, scale: float = 1.0) -> Dict:
+    """Trunk params with kernel <- kernel + scale * (up @ down), as a new
+    tree; untouched leaves are shared, not copied."""
+    def walk(node, prefix=()):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict) and set(v) == {"down", "up"}:
+                out[prefix + (k,)] = v
+            elif isinstance(v, dict):
+                out.update(walk(v, prefix + (k,)))
+        return out
+
+    merged = flatten(trunk_params)
+    for path, lp in walk(lora_params).items():
+        base = merged[path]
+        delta = (lp["up"] @ lp["down"]) * scale
+        merged[path] = base + delta.to(base.dtype)
+    return unflatten(merged)
+
+
+def controllora_params(unet_params: Dict, lora_params: Dict, head_params: Dict,
+                       lora_scale: float = 1.0) -> Dict:
+    """A ControlLoRA branch's tree: tied trunk (+ merged LoRA) + its own
+    zero-conv heads (``controlnet_down_blocks_*`` / ``controlnet_mid_block``)."""
+    trunk = split_trunk_params(unet_params)
+    merged = merge_lora(trunk, lora_params, lora_scale) if lora_params else dict(trunk)
+    merged.update(head_params)
+    return merged

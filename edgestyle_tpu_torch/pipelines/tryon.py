@@ -1,0 +1,281 @@
+"""End-to-end try-on generation.
+
+Counterpart of edgestyle_tpu/pipelines/tryon.py, exact path: CLIP encode
+of [negative; prompt] for CFG -> one-time embedding of the N control
+images (VAE encode x3 into the UNet's tied ``conv_in`` for the ControlLoRA
+branches, the conv-stack embedding x3 for the openpose branches) -> UniPC
+steps, each running the multi-branch ControlNet as batched trunk calls,
+the fusion blocks, the UNet with the injected residuals and the CFG
+combine -> VAE decode -> [0, 1] images.
+
+Tensors are NCHW (channels_last); images (B, 3, H, W), latents
+(B, 4, H/8, W/8). The pipeline runs on ``device`` (default the card). The
+JAX package's serving knobs (int8 quant, ToMe, the ControlNet and UNet
+caches, ``cfg_interval``, the DPM++ and LCM samplers, ``generate_dp`` /
+``generate_tp``) are not ported yet; asking for one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from edgestyle_tpu_torch.core.device import DeviceLike, resolve_device, torch_dtype
+from edgestyle_tpu_torch.core.params import InitTree, materialize, sub
+from edgestyle_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+from edgestyle_tpu_torch.models.multicontrolnet import EdgeStyleMultiControlNet, edgestyle_fusion
+from edgestyle_tpu_torch.models.unet import (
+    SD15UNet,
+    UNetConfig,
+    controllora_params,
+    init_lora_params,
+    split_trunk_params,
+)
+from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from edgestyle_tpu_torch.schedulers.ddpm import NoiseSchedule
+from edgestyle_tpu_torch.schedulers.unipc import UniPCScheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    unet: UNetConfig = UNetConfig()
+    vae: VAEConfig = VAEConfig()
+    clip: CLIPTextConfig = CLIPTextConfig()
+    # integer id -> that ControlLoRA (VAE-latent cond), None -> the shared
+    # conv-cond ControlNet; the 4-branch legacy layout is (0, None, 1, None)
+    pattern: tuple = (0, None, 1, None, 1, None)
+    dtype: str = "bfloat16"
+    scheduler: str = "unipc"
+
+    @property
+    def num_branches(self) -> int:
+        return len(self.pattern)
+
+    @property
+    def latent_branches(self) -> tuple:
+        return tuple(p for p, pid in enumerate(self.pattern) if pid is not None)
+
+
+class EdgeStylePipeline:
+    """params: {'vae', 'clip', 'unet', 'controlnet': {'static', 'lora_0',
+    'lora_1', 'fusion'}}, in the port's layout (core/porting.py)."""
+
+    def __init__(self, cfg: PipelineConfig = PipelineConfig(), device: DeviceLike = "cuda",
+                 quant: Optional[str] = None, tome=None):
+        if quant not in (None, "none"):
+            raise NotImplementedError(f"quant={quant!r} is not ported yet")
+        if tome is not None:
+            raise NotImplementedError("ToMe is not ported yet")
+        if cfg.scheduler != "unipc":
+            raise NotImplementedError(f"scheduler {cfg.scheduler!r} is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.vae = AutoencoderKL(cfg.vae, self.dtype)
+        self.clip = CLIPTextEncoder(cfg.clip, self.dtype)
+        self.unet = SD15UNet(cfg.unet, dtype=self.dtype)
+        self.mcn = EdgeStyleMultiControlNet(cfg.unet, cfg.pattern, self.dtype)
+        self.scheduler = UniPCScheduler(NoiseSchedule.sd15())
+        self.vae_downscale = 2 ** (len(cfg.vae.block_out_channels) - 1)
+
+    # ------------------------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """The port's own random init, in the JAX tree layout: every model's
+        forward runs once on the meta device to record its params, which
+        are then drawn from ``generator`` (on this pipeline's device).
+        ControlNet heads and the cond embedding's conv_out start at zero,
+        LoRA ups at zero, as in JAX."""
+        cfg = self.cfg
+        meta = torch.device("meta")
+        s = cfg.vae.sample_size
+        hw = s // self.vae_downscale
+        img = torch.zeros((1, 3, s, s), device=meta)
+        lat = torch.zeros((1, cfg.unet.in_channels, hw, hw), device=meta)
+        t = torch.zeros((1,), dtype=torch.long, device=meta)
+        ctx = torch.zeros((1, cfg.clip.max_positions, cfg.clip.hidden_size), device=meta)
+        ids = torch.zeros((1, cfg.clip.max_positions), dtype=torch.long, device=meta)
+        emb = torch.zeros((1, cfg.unet.block_out_channels[0], hw, hw), device=meta)
+
+        tree = InitTree()
+        self.vae(sub(tree, "vae"), img)
+        self.clip(sub(tree, "clip"), ids)
+        self.unet(sub(tree, "unet"), lat, t, ctx)
+        cn = sub(tree, "controlnet")
+        static = sub(cn, "static")
+        down, mid = self.mcn.branch.controlnet_forward(static, lat, t, ctx, emb)
+        self.mcn.branch.embed_cond(static, img)
+        n = cfg.num_branches
+        edgestyle_fusion(sub(cn, "fusion"), [list(down)] * n, [mid] * n,
+                         self.mcn.down_channels, cfg.unet.block_out_channels[-1], self.dtype)
+        params = materialize(tree, generator, self.dtype)
+
+        heads = {k: v for k, v in params["controlnet"]["static"].items()
+                 if k.startswith("controlnet_")}
+        trunk = split_trunk_params(params["unet"])
+        for key in sorted({g.params_key for g in self.mcn.groups if g.kind == "lora"}):
+            params["controlnet"][key] = controllora_params(
+                params["unet"], init_lora_params(generator, trunk, rank=32), heads)
+        return params
+
+    # ------------------------------------------------------------------
+    def encode_prompt(self, params, prompt_ids, negative_prompt_ids):
+        """(B, n) ids each -> (2B, n, C) [uncond; cond]."""
+        ids = torch.cat([negative_prompt_ids, prompt_ids], dim=0)
+        return self.clip(params["clip"], ids)["last_hidden_state"]
+
+    def embed_cond_images(self, params, cond_images: Sequence[torch.Tensor],
+                          generator: Optional[torch.Generator] = None):
+        """N (B, 3, H, W) images -> N (B, 320, H/8, W/8) embeddings. VAE
+        branches: encode (posterior mode without a generator) * scaling
+        factor -> the UNet's conv_in in fp32 (the JAX package applies the
+        fp32 params there); the others: the conv-stack embedding."""
+        cfg = self.cfg
+        b = cond_images[0].shape[0]
+        latent_pos = list(cfg.latent_branches)
+        conv_pos = [p for p in range(cfg.num_branches) if p not in latent_pos]
+        out: Dict[int, torch.Tensor] = {}
+        if latent_pos:
+            stacked = torch.cat([cond_images[p] for p in latent_pos], dim=0)
+            lat = self.vae.encode(params["vae"], stacked, generator) * cfg.vae.scaling_factor
+            conv_in = params["unet"]["conv_in"]
+            emb = F.conv2d(lat.float(), conv_in["kernel"].float(), conv_in["bias"].float(),
+                           padding=1)
+            for j, p in enumerate(latent_pos):
+                out[p] = emb[j * b:(j + 1) * b]
+        if conv_pos:
+            stacked = torch.cat([cond_images[p] for p in conv_pos], dim=0)
+            emb = self.mcn.branch.embed_cond(params["controlnet"]["static"], stacked)
+            for j, p in enumerate(conv_pos):
+                out[p] = emb[j * b:(j + 1) * b]
+        return [out[p] for p in range(cfg.num_branches)]
+
+    # ------------------------------------------------------------------
+    def _residual_step(self, params, context, embs, embs2, scales_i, b, guess_mode,
+                       sample, t: int):
+        """The multi-branch ControlNet for one step, CFG-doubled to 2B rows.
+        In guess mode only the conditional half runs; the uncond half gets
+        zero residuals."""
+        dev = sample.device
+        if guess_mode:
+            tb = torch.full((b,), t, dtype=torch.long, device=dev)
+            down, mid = self.mcn(params["controlnet"], sample, tb, context[b:], embs, scales_i,
+                                 guess_mode=True)
+            down = tuple(torch.cat([torch.zeros_like(d), d], dim=0) for d in down)
+            return down, torch.cat([torch.zeros_like(mid), mid], dim=0)
+        x2 = torch.cat([sample, sample], dim=0)
+        t2 = torch.full((2 * b,), t, dtype=torch.long, device=dev)
+        return self.mcn(params["controlnet"], x2, t2, context, embs2, scales_i)
+
+    def _generate(self, params, prompt_ids, negative_prompt_ids, cond_images, generator,
+                  num_inference_steps: int, guidance_scale, scales: np.ndarray, latents,
+                  guess_mode: bool):
+        cfg = self.cfg
+        dev = self.device
+        b = prompt_ids.shape[0]
+        context = self.encode_prompt(params, prompt_ids, negative_prompt_ids)
+        embs = self.embed_cond_images(params, cond_images)
+        embs2 = [torch.cat([e, e], dim=0) for e in embs]
+        plan = self.scheduler.plan(num_inference_steps)
+        if latents is None:
+            h = cond_images[0].shape[2] // self.vae_downscale
+            w = cond_images[0].shape[3] // self.vae_downscale
+            latents = torch.randn((b, cfg.unet.in_channels, h, w), generator=generator,
+                                  device=dev, dtype=torch.float32)
+        latents = latents.to(dev, torch.float32).contiguous(memory_format=torch.channels_last)
+        g = torch.as_tensor(guidance_scale, dtype=torch.float32, device=dev)
+        if g.ndim:
+            g = g.reshape(b, 1, 1, 1)
+
+        def model_fn(sample, t, i):
+            down, mid = self._residual_step(params, context, embs, embs2, scales[i], b,
+                                            guess_mode, sample, t)
+            x2 = torch.cat([sample, sample], dim=0)
+            t2 = torch.full((2 * b,), t, dtype=torch.long, device=dev)
+            noise = self.unet(params["unet"], x2, t2, context,
+                              down_block_additional_residuals=down,
+                              mid_block_additional_residual=mid)
+            uncond, cond = noise.chunk(2, dim=0)
+            return uncond + g * (cond - uncond)
+
+        final = self.scheduler.sample_loop(plan, model_fn, latents)
+        img = self.vae.decode(params["vae"], final / cfg.vae.scaling_factor)
+        return torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
+
+    @torch.no_grad()
+    def __call__(self, params, prompt_ids, negative_prompt_ids,
+                 cond_images: Sequence[torch.Tensor],
+                 generator: Optional[torch.Generator] = None, num_inference_steps: int = 20,
+                 guidance_scale=3.5, conditioning_scale: Optional[Sequence[float]] = None,
+                 latents: Optional[torch.Tensor] = None, guess_mode: bool = False, control_guidance_start=0.0,
+                 control_guidance_end=1.0, controlnet_cache_interval: int = 1,
+                 unet_cache_interval: int = 1, cfg_interval=(0.0, 1.0),
+                 controlnet_cache_steps=None, unet_cache_steps=None):
+        """Generate try-on images (B, 3, H, W) in [0, 1]. Defaults follow the reference app: 20 steps, guidance
+        3.5. ``guidance_scale`` is a scalar or (B,); the control guidance
+        window becomes a per-step keep mask folded into the per-branch
+        conditioning scales on the host (``_step_scales``)."""
+        if (controlnet_cache_interval != 1 or unet_cache_interval != 1
+                or controlnet_cache_steps is not None or unet_cache_steps is not None):
+            raise NotImplementedError("the ControlNet and UNet caches are not ported yet")
+        if tuple(float(c) for c in cfg_interval) != (0.0, 1.0):
+            raise NotImplementedError("cfg_interval is not ported yet")
+        dev = self.device
+        prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
+        negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
+        cond_images = [torch.as_tensor(im).to(dev, torch.float32)
+                       .contiguous(memory_format=torch.channels_last) for im in cond_images]
+        self._check_inputs(prompt_ids, negative_prompt_ids, cond_images,
+                           num_inference_steps, latents)
+        scales = self._step_scales(num_inference_steps, conditioning_scale,
+                                   control_guidance_start, control_guidance_end)
+        g = np.asarray(guidance_scale, np.float32)
+        if g.ndim not in (0, 1) or (g.ndim == 1 and g.shape[0] != prompt_ids.shape[0]):
+            raise ValueError(f"guidance_scale must be a scalar or (B,), got {g.shape} "
+                             f"for B={prompt_ids.shape[0]}")
+        return self._generate(params, prompt_ids, negative_prompt_ids, cond_images, generator,
+                              num_inference_steps, g, scales, latents, guess_mode)
+
+    def _step_scales(self, num_steps: int, conditioning_scale, start, end) -> np.ndarray:
+        """(num_steps, num_branches) host float32: the reference's keep mask
+        (0 when i/N < start or (i+1)/N > end) times the per-branch scale."""
+        n = self.cfg.num_branches
+        starts = np.broadcast_to(np.asarray(start, np.float32), (n,))
+        ends = np.broadcast_to(np.asarray(end, np.float32), (n,))
+        i = np.arange(num_steps, dtype=np.float32)[:, None]
+        keep = 1.0 - ((i / num_steps < starts[None, :])
+                      | ((i + 1) / num_steps > ends[None, :])).astype(np.float32)
+        scales = (np.ones((n,), np.float32) if conditioning_scale is None
+                  else np.asarray(conditioning_scale, np.float32))
+        return (keep * scales[None, :]).astype(np.float32)
+
+    def _check_inputs(self, prompt_ids, negative_prompt_ids, cond_images,
+                      num_inference_steps, latents):
+        cfg = self.cfg
+        if prompt_ids.shape != negative_prompt_ids.shape:
+            raise ValueError(f"prompt ids {tuple(prompt_ids.shape)} vs negative "
+                             f"{tuple(negative_prompt_ids.shape)}")
+        if prompt_ids.ndim != 2 or prompt_ids.shape[1] != cfg.clip.max_positions:
+            raise ValueError(f"prompt_ids must be (B, {cfg.clip.max_positions}), got "
+                             f"{tuple(prompt_ids.shape)}")
+        if len(cond_images) != cfg.num_branches:
+            raise ValueError(f"expected {cfg.num_branches} control images, got "
+                             f"{len(cond_images)}")
+        b = prompt_ids.shape[0]
+        for i, im in enumerate(cond_images):
+            if im.ndim != 4 or im.shape[0] != b or im.shape[1] != 3:
+                raise ValueError(f"cond image {i}: expected (B={b}, 3, H, W), got "
+                                 f"{tuple(im.shape)}")
+            if im.shape[2] % 8 or im.shape[3] % 8:
+                raise ValueError(f"cond image {i}: H/W must be divisible by 8, got "
+                                 f"{tuple(im.shape)}")
+        if num_inference_steps < 1:
+            raise ValueError("num_inference_steps must be >= 1")
+        if latents is not None:
+            want = (b, cfg.unet.in_channels, cond_images[0].shape[2] // self.vae_downscale,
+                    cond_images[0].shape[3] // self.vae_downscale)
+            if tuple(latents.shape) != want:
+                raise ValueError(f"latents must be {want}, got {tuple(latents.shape)}")
