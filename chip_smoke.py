@@ -1,16 +1,16 @@
 """Chip smoke test of the PyTorch/CUDA port (edgestyle_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                    # every phase
-    python3 chip_smoke.py --profile OUT_DIR  # + a profiled B=1 generation
+    python3 chip_smoke.py --profile OUT_DIR  # + a profiled B=1 generation and training step
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
   1. the card (nvidia-smi name and power limit) and the kernel build time;
   2. kernel phase: every hand-written kernel against its plain PyTorch
-     version on the card, at the full-width shapes the main path gives it,
-     with its time, the plain version's time, one PyTorch library call of
-     the same function as a yardstick (never used by the port) and the
-     least time the card could take (the bound); and the fused conv's bf16
+     version on the card, at the full-width shapes its path gives it, with
+     its time, the plain version's time, one PyTorch library call of the
+     same function as a yardstick (never used by the port) and the least
+     time the card could take (the bound); and the fused conv's bf16
      activations against bf16(exact silu);
   3. generation phase: the full-width SD1.5 6-branch try-on
      (``EdgeStylePipeline.__call__``, 512 px, 20 UniPC steps, bf16) from the
@@ -18,7 +18,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
      read around the requests;
   4. end-to-end check: the same generation at 2 steps through the kernels
      and through the ops' plain versions, image max-abs difference under a
-     stated bf16 tolerance.
+     stated bf16 tolerance;
+  5. training phase: the ControlLoRA trainer's entry point
+     (``apps/train.py::main``) at full width, 512 px, micro-batch 2, 3
+     steps of Prodigy with Min-SNR-gamma 5, from the port's random init,
+     with the kernels' launch counts read around the run against the counts
+     the code predicts; finite losses, a monotone d, every trainable group
+     moved, the frozen weights unchanged and the checkpoint read back equal;
+  6. gradient check: one micro-batch's loss and trainable gradients at B=1
+     through the kernels and through the ops' plain versions, the relative
+     L2 difference of each trainable group and of each leaf under stated
+     tolerances; then a planted fault (dq set to 0), which the same check
+     must reject.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -57,6 +68,24 @@ LSE_TOL = 1e-2     # fp32 row logsumexp of values ~log(N) + 0.5
 # then by one ulp.
 ACT_SHARE_TOL = 1e-3
 E2E_TOL = 0.1      # [0,1] images after 2 bf16 steps through 3 ControlNets + UNet + VAE
+# Backward kernels against the plain backward: max-abs error <= BWD_REL_TOL
+# * max|plain gradient|, 2 to 4 bf16 ulps of the largest gradient: the
+# kernels round P to bf16 for P^T dO (the plain version keeps it fp32, as
+# the Pallas kernel does), a few fp32 ulps of S can move a bf16 rounding of
+# dS, and the sums run in another order.
+BWD_REL_TOL = 2.0 ** -5
+# Trainable gradients through the kernels against the plain versions: per
+# group, |g_kernels - g_plain|_2 <= GRAD_TOL * |g_plain|_2, and per leaf the
+# same with LEAF_TOL. Both runs are bf16 through the VAE, the UNet and three
+# ControlNet trunks and round at other places in every attention and conv:
+# on the H100 the groups differed by 2.1e-3 to 3.6e-3 and the worst leaf (a
+# mid-block adapter with 0.1% of its group's norm) by 3.1e-2. A fault that
+# drops one path of a leaf's gradient is off by order 1 on that leaf but
+# can hide in its group's norm: with dq set to 0 the to_q adapters of the
+# long attentions were off by 1.0 and the groups by 2.8e-2 to 5.8e-2. The
+# check plants that fault once and fails unless it is rejected.
+GRAD_TOL = 0.02
+LEAF_TOL = 0.25
 
 
 def fail(msg: str) -> None:
@@ -100,7 +129,14 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- kernels
-FLASH_SHAPES = [(2 * 8, 4096, 40), (2 * 8, 1024, 80)]
+# (BH, N, D) at micro-batch 2 (or B=1 with its guidance pair): the UNet and
+# the lora_0 trunk run 2 x 8 heads, the lora_1 trunk (branches 2 and 4
+# batched) 4 x 8, the static trunk (three branches) 6 x 8; N, D are 4096, 40
+# and 1024, 80.
+FLASH_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8, 6 * 8) for n, d in ((4096, 40), (1024, 80))]
+# Backward: the UNet's up blocks and the two LoRA trunks (the static trunk
+# is frozen).
+FLASH_BWD_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8) for n, d in ((4096, 40), (1024, 80))]
 CONV_SHAPES = [  # (B, Cin, H, W, Cout)
     (2, 320, 64, 64, 320),
     (2, 1920, 32, 32, 640),
@@ -187,9 +223,66 @@ def kernel_phase(dev):
     records.append(("fused_gn_silu_conv3x3", "edgestyle_tpu_torch/kernels/fused_conv.cu",
                     "edgestyle_tpu/ops/fused_conv.py:88", shapes))
     activation_check(dev, gen)
+    records += flash_bwd_phase(dev, gen)
     # launches made for the comparison do not count
     kernels.reset_launches()
     return records
+
+
+def flash_bwd_phase(dev, gen):
+    """Both backward kernels against their plain versions on the forward's
+    own output and lse, at the training step's shapes. The library yardstick
+    is the backward of F.scaled_dot_product_attention (dq, dk and dv
+    together), for each of the two."""
+    from edgestyle_tpu_torch.ops import flash
+
+    dq_shapes, dkv_shapes = [], []
+    for bh, n, d in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.randn((1, bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = flash.flash_attention_cuda(q, k, v, scale)
+        delta = flash.flash_bwd_delta(out, do)
+        args = (q, k, v, do, lse, delta, scale)
+        dq = flash.flash_bwd_dq_cuda(*args)
+        dk, dv = flash.flash_bwd_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        ref_dq = flash.flash_bwd_dq_reference(*args)
+        ref_dk, ref_dv = flash.flash_bwd_dkv_reference(*args)
+        errs = {}
+        for name, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            rmax = r.float().abs().max().item()
+            errs[name] = ((a.float() - r.float()).abs().max().item(), BWD_REL_TOL * rmax, rmax)
+        ms_dq = time_ms(lambda: flash.flash_bwd_dq_cuda(*args))
+        ms_dkv = time_ms(lambda: flash.flash_bwd_dkv_cuda(*args))
+        plain_dq = time_ms(lambda: flash.flash_bwd_dq_reference(*args), iters=3, warmup=1)
+        plain_dkv = time_ms(lambda: flash.flash_bwd_dkv_reference(*args), iters=3, warmup=1)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        lib_ms = time_ms(lambda: lib_out.backward(do, retain_graph=True))
+        del lib_out, ql, kl, vl
+        reads = 4 * bh * n * d * 2 + 2 * bh * n * 4
+        b_dq = bound_ms(6.0 * bh * n * n * d, reads + bh * n * d * 2)
+        b_dkv = bound_ms(8.0 * bh * n * n * d, reads + 2 * bh * n * d * 2)
+        err_txt = ", ".join(f"{k} max_abs_err={e:.3e} (tol {t:.3e}; max |ref| {m:.3e})"
+                            for k, (e, t, m) in errs.items())
+        print(f"flash_bwd BH={bh} N={n} D={d}: {err_txt}; dq ms={ms_dq:.4f} "
+              f"plain_ms={plain_dq:.4f} bound_ms={b_dq[0]:.4f} ({b_dq[1]}); dkv ms={ms_dkv:.4f} "
+              f"plain_ms={plain_dkv:.4f} bound_ms={b_dkv[0]:.4f} ({b_dkv[1]}); "
+              f"sdpa_backward_ms={lib_ms:.4f}", flush=True)
+        if not all(e <= t for e, t, _ in errs.values()):
+            fail(f"the flash backward kernels disagree with their plain versions at "
+                 f"{(bh, n, d)}")
+        dq_shapes.append(dict(shape=[bh, n, d], max_abs_err=errs["dq"][0], ms=ms_dq,
+                              plain_ms=plain_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
+                              library_ms=lib_ms))
+        dkv_shapes.append(dict(shape=[bh, n, d], max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                               ms=ms_dkv, plain_ms=plain_dkv, bound_ms=b_dkv[0],
+                               bound_by=b_dkv[1], library_ms=lib_ms))
+    return [("flash_bwd_dq", "edgestyle_tpu_torch/kernels/flash_bwd.cu",
+             "edgestyle_tpu/ops/flash.py:141", dq_shapes),
+            ("flash_bwd_dkv", "edgestyle_tpu_torch/kernels/flash_bwd.cu",
+             "edgestyle_tpu/ops/flash.py:175", dkv_shapes)]
 
 
 def bf16_order(a: torch.Tensor) -> torch.Tensor:
@@ -330,14 +423,7 @@ def profile_phase(dev, pipe, params, gen, out_dir: str) -> None:
         pipe(params, ids, neg, imgs, latents=lat, num_inference_steps=20)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0.0)
-        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dt / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_b1.txt"), "w") as f:
@@ -379,6 +465,281 @@ def e2e_phase(dev, pipe, params, gen):
           f"mean_abs_diff={diff.mean().item():.4e} (tol {E2E_TOL})", flush=True)
     if not diff.max().item() <= E2E_TOL:
         fail("end-to-end images through the kernels and the plain versions disagree")
+
+
+# ---------------------------------------------------------------- training
+TRAIN_STEPS = 3
+TRAIN_ARGV = ["--random_init", "--resolution", "512", "--train_batch_size", "2",
+              "--gradient_accumulation_steps", "1", "--max_train_steps", str(TRAIN_STEPS),
+              "--mixed_precision", "bf16", "--logging_steps", "1", "--seed", "0"]
+# Launches per micro-step, from the code at SD1.5 width and 512 px:
+#   flash_fwd: every self-attention with >= 1024 tokens: the UNet's 10 (down
+#     blocks 0-1, up blocks 2-3) and 4 in each of the 3 ControlNet trunks;
+#   fused conv: 2 per ResNet block: the VAE encoder's 10 (run twice: the
+#     image, then the three VAE conds), the UNet's 22, each trunk's 10;
+#   flash_bwd_*: only attentions whose output needs a gradient: the UNet's
+#     up-block self-attentions (6; its down path sees no trainable) and the
+#     two LoRA trunks' 4 each (the static trunk is frozen and has no
+#     trainable upstream).
+TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 10 + 3 * 4,
+                           "fused_gn_silu_conv3x3": 2 * (2 * 10 + 22 + 3 * 10),
+                           "flash_bwd_dq": 6 + 2 * 4, "flash_bwd_dkv": 6 + 2 * 4}
+
+
+def train_out_dir() -> str:
+    """Checkpoints of the training phase, inside the checkout (git-ignored)."""
+    return os.path.join(HERE, "build", "torch_ext", "chip_smoke_train")
+
+
+def training_phase(dev):
+    """The trainer's entry point at full width for TRAIN_STEPS steps, with
+    the launch counts and the peak memory read around it alone. Returns
+    (launches, (pipe, frozen, tcfg, initial state)): the initial state is
+    rebuilt afterwards from the same seed by the same ``build`` that
+    ``main`` calls, to show what moved."""
+    import shutil
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import train
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.training import checkpoint
+    from edgestyle_tpu_torch.training.train_step import TRAINABLE_GROUPS
+
+    out_dir = train_out_dir()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--output_dir", out_dir]
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    log = res["log"]
+    if [r["step"] for r in log] != list(range(1, TRAIN_STEPS + 1)):
+        fail(f"training logged steps {[r['step'] for r in log]}")
+    losses, ds = [r["loss"] for r in log], [r["d"] for r in log]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss {losses}")
+    if not all(b >= a for a, b in zip(ds, ds[1:])):
+        fail(f"Prodigy's d fell: {ds}")
+    ends = [0.0] + [r["elapsed_s"] for r in log]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    b = 2
+    print(f"training ({TRAIN_STEPS} steps, micro-batch {b}, 512 px, Prodigy, snr_gamma 5): "
+          f"losses {losses}, d {ds}; seconds per step {[round(x, 4) for x in step_s]} "
+          f"(first includes warm-up); steady {steady:.4f} s/step, {steady / b:.4f} s/sample; "
+          f"main() wall {wall:.2f} s (build and checkpoint included); peak device memory of "
+          f"main() alone {peak:.2f} GiB", flush=True)
+
+    t0 = time.perf_counter()
+    built = train.build(train.parse_args(argv), dev)
+    torch.cuda.synchronize()
+    print(f"trainer build again for the checks (full-width SD1.5, frozen bf16, trainables "
+          f"fp32): {time.perf_counter() - t0:.2f} s", flush=True)
+    pipe, frozen0, tcfg, state0, _ = built
+    init = flatten(state0["trainable"])
+    final = flatten(res["state"]["trainable"])
+    for group in TRAINABLE_GROUPS:
+        keys = [k for k in init if k[0] == group]
+        moved = [k for k in keys if not torch.equal(final[k], init[k])]
+        delta = max((final[k] - init[k]).abs().max().item() for k in keys)
+        print(f"  {group}: {len(moved)} of {len(keys)} leaves moved, max |change| "
+              f"{delta:.3e}", flush=True)
+        if not moved:
+            fail(f"trainable group {group} did not move")
+    frozen = flatten(res["frozen"])
+    if frozen.keys() != flatten(frozen0).keys() or not all(
+            torch.equal(frozen[k], v) for k, v in flatten(frozen0).items()):
+        fail("a frozen weight changed in training")
+    back = checkpoint.load_checkpoint(out_dir, device=dev)
+    if back["step"] != TRAIN_STEPS or not checkpoint.states_equal(back, res["state"]):
+        fail("the final checkpoint does not read back equal to the trained state")
+    print(f"  frozen weights unchanged ({len(frozen)} leaves); checkpoint-{back['step']} read "
+          f"back equal", flush=True)
+
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"training launches per step {per_step}, predicted {TRAIN_LAUNCHES_PER_STEP}",
+          flush=True)
+    if per_step != TRAIN_LAUNCHES_PER_STEP:
+        fail("the training step's kernel launches differ from the counts the code predicts")
+    del res, back, frozen, final
+    return launches, (pipe, frozen0, tcfg, state0)
+
+
+def _live_trainables(state, gen):
+    """A copy of the trainables with the zero-init ControlNet heads and LoRA
+    ups given small random values, so that every trunk gradient is live."""
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+
+    out = {}
+    for k, v in flatten(state["trainable"]).items():
+        if (k[0].startswith("heads") and k[-1] == "kernel") or k[-1] == "up":
+            fan_in = math.prod(v.shape[1:])
+            v = torch.randn(v.shape, generator=gen, device=v.device) * (0.3 / math.sqrt(fan_in))
+        out[k] = v.clone()
+    return unflatten(out)
+
+
+def _grad_diffs(g, g_p, groups):
+    """Relative L2 difference of g from g_p per trainable group, and the
+    worst single leaf's (key, relative L2 difference, |g_p leaf|_2)."""
+    rel = lambda diff, norm: diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)  # noqa: E731
+    per_group, worst = {}, (None, 0.0, 0.0)
+    for group in groups:
+        diff2 = norm2 = 0.0
+        for k in (k for k in g_p if k[0] == group):
+            d2 = (g[k].float() - g_p[k].float()).square().sum().item()
+            n2 = g_p[k].float().square().sum().item()
+            diff2, norm2 = diff2 + d2, norm2 + n2
+            if rel(math.sqrt(d2), math.sqrt(n2)) > worst[1]:
+                worst = (k, rel(math.sqrt(d2), math.sqrt(n2)), math.sqrt(n2))
+        per_group[group] = (rel(math.sqrt(diff2), math.sqrt(norm2)), math.sqrt(norm2))
+    return per_group, worst
+
+
+def grad_check_phase(dev, built):
+    """One micro-batch (B=1) through the kernels, then through the ops'
+    plain versions (swapped in here, as e2e_phase swaps them), same weights
+    and draws: the loss and each trainable group's gradients. Then once more
+    through the kernels with a planted fault (dq set to 0), which the check
+    must reject."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import train
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+    from edgestyle_tpu_torch.models import layers
+    from edgestyle_tpu_torch.ops import attention, flash, fused_conv
+    from edgestyle_tpu_torch.training import train_step
+    from edgestyle_tpu_torch.training.train_step import TRAINABLE_GROUPS
+
+    pipe, frozen, tcfg, state = built
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    trainable = _live_trainables(state, gen)
+    args = train.parse_args(TRAIN_ARGV + ["--train_batch_size", "1"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(train.synthetic_loader(args)).items()}
+    draws = train_step.sample_draws(pipe, tcfg, batch, gen)[0]
+    mb = {k: v[0] for k, v in batch.items()}
+    sched = train_step.SCHEDULE.to(dev)
+
+    def loss_and_grads():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in flatten(trainable).items()}
+        loss = train_step.controlnet_loss_fn(unflatten(leaves), frozen, pipe, sched, tcfg, mb,
+                                             draws)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), dict(zip(leaves, grads))
+
+    kernels.reset_launches()
+    loss_k, g_k = loss_and_grads()
+    launched = dict(kernels.LAUNCHES)
+    if not all(launched.values()):
+        fail(f"the kernel run of the gradient check missed a kernel: {launched}")
+    saved = (layers.norm_act_conv3x3, attention.flash_attention)
+    layers.norm_act_conv3x3 = fused_conv.norm_act_conv3x3_reference
+    attention.flash_attention = flash.flash_attention_reference
+    try:
+        kernels.reset_launches()
+        loss_p, g_p = loss_and_grads()
+        torch.cuda.synchronize()
+        if any(kernels.LAUNCHES.values()):
+            fail("the plain run of the gradient check launched a kernel")
+    finally:
+        layers.norm_act_conv3x3, attention.flash_attention = saved
+    dq_kernel = flash.flash_bwd_dq_cuda
+    flash.flash_bwd_dq_cuda = lambda *a: dq_kernel(*a).zero_()
+    try:
+        loss_f, g_f = loss_and_grads()
+    finally:
+        flash.flash_bwd_dq_cuda = dq_kernel
+    kernels.reset_launches()
+    print(f"gradient check (B=1, one micro-batch, bf16): loss through the kernels "
+          f"{loss_k:.6f}, through the plain versions {loss_p:.6f}; kernel launches {launched}",
+          flush=True)
+    ok = {}
+    for what, g in (("kernels", g_k), ("planted fault dq = 0", g_f)):
+        per_group, (key, leaf_rel, leaf_norm) = _grad_diffs(g, g_p, TRAINABLE_GROUPS)
+        print(f"  {what} vs plain: relative L2 difference per group (tol {GRAD_TOL}) "
+              + ", ".join(f"{grp} {r:.3e} (|g_plain|_2 {n:.3e})"
+                          for grp, (r, n) in per_group.items())
+              + f"; worst leaf {'/'.join(map(str, key)) if key else '-'} {leaf_rel:.3e} "
+              f"(tol {LEAF_TOL}; |g_plain|_2 {leaf_norm:.3e})", flush=True)
+        ok[what] = all(r <= GRAD_TOL for r, _ in per_group.values()) and leaf_rel <= LEAF_TOL
+    if not ok["kernels"]:
+        fail("trainable gradients through the kernels and the plain versions disagree")
+    if ok["planted fault dq = 0"]:
+        fail("the gradient check passed a planted fault (dq = 0)")
+
+
+def profile_train_step(dev, built, out_dir: str) -> None:
+    """One training step (micro-batch 2) under torch.profiler: device time
+    by kernel family; the table goes to ``out_dir/profile_train.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgestyle_tpu_torch.apps import train
+    from edgestyle_tpu_torch.training import train_step
+
+    pipe, frozen, tcfg, state = built
+    args = train.parse_args(TRAIN_ARGV)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(train.synthetic_loader(args)).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    step = train_step.make_train_step(pipe, tcfg)
+    step(state, frozen, batch, train_step.sample_draws(pipe, tcfg, batch, gen))  # warm-up
+    draws = train_step.sample_draws(pipe, tcfg, batch, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, frozen, batch, draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    families = {}
+    for ms, n, key in rows:
+        fam = _family(key)
+        t, c = families.get(fam, (0.0, 0))
+        families[fam] = (t + ms, c + n)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+        f.write(f"wall {wall:.4f} s, device busy {busy:.4f} s\n")
+        for ms, n, key in rows:
+            f.write(f"{ms:12.3f} ms {n:7d}x  {key}\n")
+    print(f"profile (one training step, micro-batch 2, profiler on): wall {wall:.3f} s, device "
+          f"busy {busy:.3f} s ({100 * busy / wall:.1f}%)", flush=True)
+    for fam, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {fam}: {ms:.3f} ms {100 * ms / 1e3 / busy:5.1f}% {n}x", flush=True)
+
+
+def _device_rows(prof):
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dt / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def _family(key: str) -> str:
+    """A device kernel's family, by its name."""
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_kernel"):
+        if name in key:
+            return name
+    if "fused_gn_silu_conv3x3" in key or "split_sum_kernel" in key:
+        return "fused conv (fused_conv.cu)"
+    low = key.lower()
+    if "conv" in low or "cudnn" in low or "dgrad" in low or "wgrad" in low:
+        return "cuDNN convolutions (conv backward, 1x1 and strided convs)"
+    if "gemm" in low or "cutlass" in low or "xmma" in low or "cublas" in low:
+        return "cuBLAS / CUTLASS GEMMs"
+    return "PyTorch elementwise, reductions and copies"
 
 
 def main() -> int:
@@ -428,12 +789,25 @@ def main() -> int:
     if args.profile:
         profile_phase(dev, pipe, params, gen, args.profile)
     e2e_phase(dev, pipe, params, gen)
+    del pipe, params
+    torch.cuda.empty_cache()
 
+    train_launches, built = training_phase(dev)
+    grad_check_phase(dev, built)
+    if args.profile:
+        profile_train_step(dev, built, args.profile)
+
+    # each kernel's path: the generation for the forward kernels, training
+    # for the backward ones (which generation never runs)
+    paths = {"flash_fwd": "generation", "fused_gn_silu_conv3x3": "generation",
+             "flash_bwd_dq": "training", "flash_bwd_dkv": "training"}
+    by_path = {"generation": launches, "training": train_launches}
     out = []
     for name, source, replaces, shapes in records:
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=by_path[paths[name]][name],
+            launches_by_path={p: counts[name] for p, counts in by_path.items()},
             max_abs_err=max(s["max_abs_err"] for s in shapes),
             ms=sum(s["ms"] for s in shapes),
             plain_ms=sum(s["plain_ms"] for s in shapes),
@@ -442,8 +816,8 @@ def main() -> int:
             library_ms=sum(s["library_ms"] for s in shapes),
             shapes=shapes,
         ))
-        if launches[name] == 0:
-            fail(f"kernel {name} was never launched on the main path")
+        if by_path[paths[name]][name] == 0:
+            fail(f"kernel {name} was never launched on its path ({paths[name]})")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

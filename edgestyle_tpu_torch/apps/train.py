@@ -1,0 +1,264 @@
+"""The ControlLoRA trainer's entry point, on one card.
+
+Counterpart of edgestyle_tpu/apps/train.py, with its flag set and defaults
+(:func:`parse_args`). Ported: ``--random_init`` weights from ``--seed``, the
+synthetic loader, the step loop with its JSON log lines, checkpointing with
+rotation and resume, and the final checkpoint. Not ported yet, and refused
+with ``NotImplementedError`` naming their ROADMAP item: a dataset
+(``--dataset_dir``), the pretrained weights, validation, background
+prefetch (``--dataloader_num_workers``) and more than one card.
+
+    python -m edgestyle_tpu_torch.apps.train --random_init --resolution 512 \\
+        --train_batch_size 2 --gradient_accumulation_steps 1 --max_train_steps 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+ROADMAP_TRAINING = "ROADMAP.md Queue 1 item 13"
+ROADMAP_LOADERS = "ROADMAP.md Queue 1 item 1b"
+
+
+def _ref_bool(v: str) -> bool:
+    """Reference-style bool flags take =True/=False values."""
+    return str(v).lower() in ("1", "true", "yes")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="EdgeStyle ControlLoRA trainer (PyTorch/CUDA)")
+    # model sources
+    p.add_argument("--pretrained_model", "--pretrained_model_name_or_path",
+                   type=str, default=None, dest="pretrained_model")
+    p.add_argument("--vae", "--pretrained_vae_name_or_path", type=str, default=None,
+                   dest="vae")
+    p.add_argument("--openpose_controlnet", "--pretrained_openpose_name_or_path",
+                   type=str, default=None, dest="openpose_controlnet")
+    p.add_argument("--random_init", action="store_true",
+                   help="random-init all weights from --seed")
+    # data
+    p.add_argument("--dataset_dir", type=str, default=None)
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--train_batch_size", type=int, default=2)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=32)
+    p.add_argument("--proportion_empty_prompts", type=float, default=0.0)
+    p.add_argument("--proportion_empty_images", type=float, default=0.0)
+    p.add_argument("--proportion_patchworked_images", type=float, default=0.0)
+    p.add_argument("--proportion_cutout_images", type=float, default=0.0)
+    p.add_argument("--proportion_patchworks", type=float, default=0.0)
+    p.add_argument("--use_agnostic_images", action=argparse.BooleanOptionalAction,
+                   default=False)
+    # optimization (reference recipe: prodigy lr 1.0, snr_gamma 5)
+    p.add_argument("--optimizer", type=str, default="prodigy", choices=["prodigy", "adamw"])
+    p.add_argument("--learning_rate", type=float, default=1.0)
+    p.add_argument("--scale_lr", action="store_true", default=False,
+                   help="lr *= grad_accum * batch * device_count")
+    p.add_argument("--lr_warmup_steps", type=int, default=0)
+    p.add_argument("--snr_gamma", type=float, default=5.0)
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--adam_beta1", type=float, default=0.9)
+    p.add_argument("--adam_beta2", type=float, default=0.999)
+    p.add_argument("--adam_epsilon", type=float, default=1e-8)
+    p.add_argument("--adam_weight_decay", type=float, default=1e-4)
+    p.add_argument("--prodigy_beta3", type=float, default=None)
+    p.add_argument("--prodigy_decouple", type=_ref_bool, default=True)
+    p.add_argument("--prodigy_use_bias_correction", type=_ref_bool, default=True)
+    p.add_argument("--prodigy_safeguard_warmup", type=_ref_bool, default=True)
+    p.add_argument("--lr_scheduler", type=str, default="cosine_annealing",
+                   help="diffusers get_scheduler names; cosine_annealing is an alias "
+                        "of cosine")
+    p.add_argument("--lr_num_cycles", type=float, default=1.0)
+    p.add_argument("--lr_power", type=float, default=1.0)
+    p.add_argument("--num_train_epochs", type=int, default=1)
+    p.add_argument("--max_train_steps", type=int, default=None,
+                   help="None -> num_train_epochs * steps-per-epoch")
+    p.add_argument("--max_train_samples", type=int, default=None)
+    p.add_argument("--controllora_linear_rank", type=int, default=32)
+    p.add_argument("--controllora_conv2d_rank", type=int, default=0,
+                   help="adapt trunk convs too; >0 uses the LINEAR rank for the adapters "
+                        "(the reference quirk)")
+    p.add_argument("--mixed_precision", type=str, default="bf16",
+                   choices=["no", "fp16", "bf16"], help="fp16 runs as bf16")
+    p.add_argument("--seed", type=int, default=0)
+    # checkpointing / logging
+    p.add_argument("--output_dir", type=str, default="./edgestyle-tpu-out")
+    p.add_argument("--logging_dir", type=str, default="logs")
+    p.add_argument("--checkpointing_steps", type=int, default=100)
+    p.add_argument("--checkpoints_total_limit", type=int, default=5)
+    p.add_argument("--resume_from_checkpoint", type=str, default=None)
+    p.add_argument("--validation_steps", type=int, default=0)
+    p.add_argument("--num_validation_images", type=int, default=4)
+    p.add_argument("--logging_steps", type=int, default=10)
+    # accepted for reference-CLI compatibility; no-ops here
+    for flag, default in (("--revision", None), ("--variant", None),
+                          ("--tokenizer_name", None), ("--cache_dir", None),
+                          ("--report_to", "tensorboard"),
+                          ("--tracker_project_name", "edgestyle-tpu")):
+        p.add_argument(flag, type=str, default=default, help="compat no-op")
+    p.add_argument("--dataloader_num_workers", type=int, default=0)
+    p.add_argument("--gradient_checkpointing", action="store_true",
+                   help="recompute each micro-batch's activations in the backward "
+                        "(torch.utils.checkpoint)")
+    p.add_argument("--allow_tf32", action="store_true", help="compat no-op")
+    p.add_argument("--set_grads_to_none", action="store_true", help="compat no-op")
+    p.add_argument("--controllora_use_vae", action="store_true", default=True,
+                   help="compat: the VAE conditioning embedding is always on")
+    args = p.parse_args(argv)
+    if args.resolution % 8 != 0:
+        p.error("resolution must be divisible by 8")
+    return args
+
+
+def check_supported(args) -> None:
+    """Refuse what this slice does not port yet."""
+    if args.dataset_dir:
+        raise NotImplementedError(f"--dataset_dir: the dataset and loader are not ported "
+                                  f"yet ({ROADMAP_TRAINING})")
+    if not args.random_init:
+        raise NotImplementedError(f"pretrained weights (--pretrained_model, --vae, "
+                                  f"--openpose_controlnet) need the checkpoint loaders "
+                                  f"({ROADMAP_LOADERS}); pass --random_init")
+    if args.validation_steps:
+        raise NotImplementedError(f"--validation_steps: validation is not ported yet "
+                                  f"({ROADMAP_TRAINING})")
+    if args.dataloader_num_workers > 0:
+        raise NotImplementedError(f"--dataloader_num_workers: background prefetch is not "
+                                  f"ported yet ({ROADMAP_TRAINING})")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(f"more than one card: data-parallel training is not "
+                                  f"ported yet ({ROADMAP_TRAINING})")
+
+
+def build(args, device="cuda", base_cfg=None):
+    """The pipeline, the frozen weights, the train config and the initial
+    train state, from ``--seed``. ``base_cfg``: the model configuration
+    (default full-width SD1.5); its dtype and VAE sample size come from the
+    flags. Returns (pipe, frozen, tcfg, state, max_train_steps)."""
+    import dataclasses
+
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
+    from edgestyle_tpu_torch.training.train_step import (
+        TrainConfig,
+        init_trainable,
+        make_optimizer,
+    )
+
+    dtype = "float32" if args.mixed_precision == "no" else "bfloat16"
+    # the fusion blocks' LayerNorm sizes follow --resolution
+    base = base_cfg or PipelineConfig()
+    pipe = EdgeStylePipeline(dataclasses.replace(
+        base, dtype=dtype, vae=dataclasses.replace(base.vae, sample_size=args.resolution)),
+        device=device)
+    gen = make_generator(args.seed, pipe.device)
+    params = pipe.init_params(gen)
+    frozen = {"vae": params["vae"], "clip": params["clip"], "unet": params["unet"],
+              "static": params["controlnet"]["static"]}
+    if dtype == "bfloat16":
+        # mixed precision: every frozen leaf is stored bf16 (norms too, as
+        # in the JAX trainer); the trainables stay fp32 master weights
+        frozen = unflatten({k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+                            for k, v in flatten(frozen).items()})
+    steps_per_epoch = 1000  # the synthetic loader has no epochs
+    max_train_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
+    lr = args.learning_rate
+    if args.scale_lr:
+        lr *= args.gradient_accumulation_steps * args.train_batch_size  # one card
+    tcfg = TrainConfig(
+        snr_gamma=args.snr_gamma,
+        max_grad_norm=args.max_grad_norm,
+        remat=args.gradient_checkpointing,
+        optimizer=args.optimizer,
+        learning_rate=lr,
+        adam_beta1=args.adam_beta1,
+        adam_beta2=args.adam_beta2,
+        adam_epsilon=args.adam_epsilon,
+        lr_scheduler=args.lr_scheduler,
+        lr_warmup_steps=args.lr_warmup_steps,
+        lr_total_steps=(None if args.lr_scheduler in ("constant", "constant_with_warmup")
+                        else max_train_steps),
+        lr_num_cycles=args.lr_num_cycles,
+        lr_power=args.lr_power,
+        prodigy_beta3=args.prodigy_beta3,
+        prodigy_decouple=args.prodigy_decouple,
+        prodigy_use_bias_correction=args.prodigy_use_bias_correction,
+        prodigy_safeguard_warmup=args.prodigy_safeguard_warmup,
+        weight_decay=args.adam_weight_decay,
+        use_agnostic=args.use_agnostic_images,
+        grad_accum=args.gradient_accumulation_steps,
+    )
+    trainable = init_trainable(pipe, gen, params["unet"], args.controllora_linear_rank,
+                               args.controllora_conv2d_rank)
+    del params
+    state = {"trainable": trainable, "opt_state": make_optimizer(tcfg).init(trainable),
+             "step": 0}
+    return pipe, frozen, tcfg, state, max_train_steps
+
+
+def synthetic_loader(args):
+    """Random batches, the JAX trainer's ``_synthetic_loader`` arrays (the
+    same numpy draws from ``--seed``) in NCHW: images (accum, mb, 3, res,
+    res) float32, input_ids (accum, mb, 77) int64."""
+    g = np.random.default_rng(args.seed)
+    accum, mb, res = args.gradient_accumulation_steps, args.train_batch_size, args.resolution
+
+    def img():
+        a = g.standard_normal((accum, mb, res, res, 3)).astype(np.float32) * 0.2
+        return np.ascontiguousarray(a.transpose(0, 1, 4, 2, 3))
+
+    while True:
+        yield {
+            "original": img(), "agnostic": img(), "head": img(), "clothes": img(),
+            "clothes2": img(), "original_openpose": np.abs(img()),
+            "clothes_openpose": np.abs(img()), "clothes_openpose2": np.abs(img()),
+            "input_ids": g.integers(1, 49000, (accum, mb, 77)).astype(np.int64),
+        }
+
+
+def main(argv=None, device="cuda", base_cfg=None):
+    """Train; print one JSON line every ``--logging_steps`` and a final one.
+    Returns {'state', 'frozen', 'log'}: the final train state, the frozen
+    weights it trained against and the logged metrics. ``device`` and
+    ``base_cfg`` as :func:`build` takes them."""
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from edgestyle_tpu_torch.training.train_step import make_train_step, sample_draws
+
+    args = parse_args(argv)
+    check_supported(args)
+    pipe, frozen, tcfg, state, max_train_steps = build(args, device, base_cfg)
+    if args.resume_from_checkpoint:
+        state = load_checkpoint(args.output_dir, args.resume_from_checkpoint
+                                if args.resume_from_checkpoint == "latest"
+                                else int(args.resume_from_checkpoint), pipe.device)
+    step_fn = make_train_step(pipe, tcfg)
+    draw_gen = make_generator(args.seed + 1, pipe.device)
+    log = []
+    t0 = time.time()
+    for batch in synthetic_loader(args):
+        if state["step"] >= max_train_steps:
+            break
+        batch = {k: torch.from_numpy(v).to(pipe.device) for k, v in batch.items()}
+        state, metrics = step_fn(state, frozen, batch, sample_draws(pipe, tcfg, batch, draw_gen))
+        gstep = state["step"]
+        if gstep % args.logging_steps == 0:
+            rec = {"step": gstep, "loss": float(metrics["loss"]), "d": float(metrics["d"]),
+                   "elapsed_s": round(time.time() - t0, 3)}
+            log.append(rec)
+            print(json.dumps(rec), flush=True)
+        if args.checkpointing_steps and gstep % args.checkpointing_steps == 0:
+            save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
+    save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
+    print(json.dumps({"done": True, "final_step": state["step"]}), flush=True)
+    return {"state": state, "frozen": frozen, "log": log}
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,9 @@ Each ``*.cu`` file here has a plain C interface. On first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/torch_ext/``
 at the repo root (git-ignored) and loaded with ``ctypes``; pointers and the
 stream are passed as integers from the torch tensors. The library's file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. The sources include no PyTorch
+name carries a hash of the source, the shared headers (``*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. The sources include no PyTorch
 header, which keeps each build to seconds.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -46,9 +47,14 @@ SOURCES = {
     "fused_conv": ("fused_conv.cu", {
         "fused_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     }),
+    "flash_bwd": ("flash_bwd.cu", {
+        "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+        "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    }),
 }
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "fused_gn_silu_conv3x3": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "fused_gn_silu_conv3x3": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _locks = {name: threading.Lock() for name in SOURCES}
@@ -69,8 +75,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = KERNEL_DIR / SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path. Its name hashes the source, every header here
+    (a source may include any of them) and the flags."""
+    h = hashlib.sha256((KERNEL_DIR / SOURCES[name][0]).read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -24,57 +24,21 @@
 // Plain C interface (loaded with ctypes): q, k, v, o are (BH, N, D) bf16,
 // contiguous; lse is (BH, N) fp32. Returns the cudaError_t of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::c_to_a;
+using flash::load_a;
+using flash::load_b_cols;
+using flash::load_b_rows;
+using flash::mma_bf16_16816;
 
 constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16 rows
 constexpr int kBlockK = 64;   // keys per K/V tile
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two fp32 values -> one register of two bf16; `lo` lands in the low half,
-// which is the lower-indexed element of an mma fragment pair.
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + 64) of a (n, d) bf16 matrix into a (64, DP + 8)
-// shared tile, 16 bytes per thread per step; zero rows >= n and lanes >= d.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                          int row0, int n, int d) {
-  constexpr int LD = DP + 8;
-  constexpr int kChunks = DP / 8;
-  for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n && c < d) {
-      v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * d + c);
-    }
-    *reinterpret_cast<uint4*>(s + r * LD + c) = v;
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -100,19 +64,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int tg = lane & 3;   // thread in group: column pair 2*tg
   const int r0 = warp * 16;
 
-  load_tile<DP>(qs, q + base, q0, n, d);
+  flash::load_tile<DP, kBlockQ, kThreads>(qs, q + base, q0, n, d);
   __syncthreads();
 
   uint32_t qa[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* p0 = qs + (r0 + g) * LD + kk * 16 + tg * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-  }
+  for (int kk = 0; kk < KS; ++kk) load_a<DP>(qa[kk], qs, r0, kk, g, tg);
 
   float acc[NT][4];
 #pragma unroll
@@ -122,8 +79,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   for (int k0 = 0; k0 < n; k0 += kBlockK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DP>(ks, k + base, k0, n, d);
-    load_tile<DP>(vs, v + base, k0, n, d);
+    flash::load_tile<DP, kBlockK, kThreads>(ks, k + base, k0, n, d);
+    flash::load_tile<DP, kBlockK, kThreads>(vs, v + base, k0, n, d);
     __syncthreads();
 
     float s[ST][4];
@@ -132,10 +89,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* kp = ks + (j * 8 + g) * LD + kk * 16 + tg * 2;
         uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(kp);
-        b[1] = *reinterpret_cast<const uint32_t*>(kp + 8);
+        load_b_rows<DP>(b, ks, j, kk, g, tg);
         mma_bf16_16816(s[j], qa[kk], b);
       }
     }
@@ -185,16 +140,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      c_to_a(pa, s, kk);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* vp = vs + (kk * 16 + tg * 2) * LD + j * 8 + g;
         uint32_t b[2];
-        b[0] = pack_bf16(vp[0], vp[LD]);
-        b[1] = pack_bf16(vp[8 * LD], vp[9 * LD]);
+        load_b_cols<DP>(b, vs, j, kk, g, tg);
         mma_bf16_16816(acc[j], pa, b);
       }
     }

@@ -177,30 +177,53 @@ def is_lora_linear_path(path: Tuple[str, ...]) -> bool:
     return any(path[-2] == n or path[-2].startswith(n) for n in LORA_LINEAR_LEAF_NAMES)
 
 
+def is_lora_conv_path(path: Tuple[str, ...]) -> bool:
+    """Conv-LoRA targets (with a conv rank > 0): every conv kernel of the
+    tied trunk."""
+    if not path or path[-1] != "kernel":
+        return False
+    top = path[0]
+    return top == "conv_in" or top.startswith("down_blocks_") or top == "mid_block"
+
+
 def split_trunk_params(unet_params: Dict) -> Dict:
     """The subtree a ControlLoRA ties to."""
     return {k: v for k, v in unet_params.items()
             if k in TRUNK_KEYS or k.startswith("down_blocks_")}
 
 
-def init_lora_params(gen: torch.Generator, trunk_params: Dict, rank: int) -> Dict:
-    """{path: {'down', 'up'}} adapters on every 2-D trunk linear kernel, in
-    the port's (out, in) layout: down (rank, in) ~ N(0, 1/rank) (diffusers
-    LoRALinearLayer), up (out, rank) = 0, fp32."""
+def init_lora_params(gen: torch.Generator, trunk_params: Dict, rank: int,
+                     conv_rank: int = 0) -> Dict:
+    """{path: {'down', 'up'}} adapters, fp32, in the port's layout. Every 2-D
+    trunk linear kernel (out, in) gets down (rank, in) ~ N(0, 1/rank)
+    (diffusers LoRALinearLayer) and up (out, rank) = 0. With ``conv_rank`` >
+    0 every trunk conv kernel (out, in, kh, kw) also gets down (rank, in,
+    kh, kw), a full-kernel conv to ``rank`` channels, and up (out, rank),
+    the 1x1 after it. As in the reference, the conv adapters take the
+    *linear* rank; ``conv_rank`` only switches them on."""
     lora = {}
     for path, leaf in flatten(trunk_params).items():
         if is_lora_linear_path(path) and leaf.ndim == 2:
             dout, din = leaf.shape
-            lora[path] = {
-                "down": torch.randn((rank, din), generator=gen, device=gen.device) / rank,
-                "up": torch.zeros((dout, rank), device=gen.device),
-            }
+            down_shape = (rank, din)
+        elif conv_rank > 0 and leaf.ndim == 4 and is_lora_conv_path(path):
+            dout, din, kh, kw = leaf.shape
+            down_shape = (rank, din, kh, kw)
+        else:
+            continue
+        lora[path] = {
+            "down": torch.randn(down_shape, generator=gen, device=gen.device) / rank,
+            "up": torch.zeros((dout, rank), device=gen.device),
+        }
     return unflatten(lora)
 
 
 def merge_lora(trunk_params: Dict, lora_params: Dict, scale: float = 1.0) -> Dict:
-    """Trunk params with kernel <- kernel + scale * (up @ down), as a new
-    tree; untouched leaves are shared, not copied."""
+    """Trunk params with kernel <- kernel + scale * (up o down), as a new
+    tree; untouched leaves are shared, not copied. Linear: up @ down; conv:
+    einsum('or,rihw->oihw'), the composition of the k x k down conv and the
+    1x1 up conv, kept channels_last (the fused conv kernel reads that
+    layout)."""
     def walk(node, prefix=()):
         out = {}
         for k, v in node.items():
@@ -213,8 +236,13 @@ def merge_lora(trunk_params: Dict, lora_params: Dict, scale: float = 1.0) -> Dic
     merged = flatten(trunk_params)
     for path, lp in walk(lora_params).items():
         base = merged[path]
-        delta = (lp["up"] @ lp["down"]) * scale
-        merged[path] = base + delta.to(base.dtype)
+        if lp["down"].ndim == 4:
+            delta = torch.einsum("or,rihw->oihw", lp["up"], lp["down"]) * scale
+            merged[path] = (base + delta.to(base.dtype)).contiguous(
+                memory_format=torch.channels_last)
+        else:
+            delta = (lp["up"] @ lp["down"]) * scale
+            merged[path] = base + delta.to(base.dtype)
     return unflatten(merged)
 
 

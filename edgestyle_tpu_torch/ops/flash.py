@@ -1,14 +1,21 @@
-"""Flash-attention forward: the CUDA kernel and its plain version.
+"""Flash attention: the CUDA kernels, their plain versions and the autograd
+Function that joins them.
 
-Counterpart of edgestyle_tpu/ops/flash.py (``_fwd_kernel`` /
-``_flash_forward`` / ``flash_attention``). The kernel is
-``kernels/flash_fwd.cu``; :func:`flash_attention_reference` is the plain
-PyTorch version of the same function (the JAX package's ``_xla_attention``:
-fp32 logits and softmax, probabilities cast to v's dtype before P*V). It is
-the CPU path and the test oracle, never a fallback on the card.
+Counterpart of edgestyle_tpu/ops/flash.py. The forward kernel is
+``kernels/flash_fwd.cu`` (``_fwd_kernel``); the backward kernels are
+``kernels/flash_bwd.cu`` (``_dq_kernel``, ``_dkv_kernel``).
+:func:`flash_attention_reference` is the plain forward (the JAX package's
+``_xla_attention``: fp32 logits and softmax, probabilities cast to v's dtype
+before P*V) and :func:`flash_attention_backward_reference` the plain
+backward (``_flash_backward``'s numerics). They are the CPU path and the
+test oracles, never a fallback on the card.
 
-The backward kernels (``_dq_kernel``, ``_dkv_kernel``) belong to the
-training slice and are not ported yet.
+:class:`FlashAttention` is the counterpart of the ``flash_attention`` custom
+VJP and the one route of :func:`flash_attention`: its forward saves (q, k,
+v, out, lse) and its backward recomputes P from them, through the kernels
+for CUDA tensors and through the plain versions for CPU tensors. The raw
+kernel wrappers refuse inputs that would record a graph, so no caller can
+cut the graph by calling them directly.
 """
 
 from __future__ import annotations
@@ -34,20 +41,71 @@ def flash_attention_reference_lse(q: torch.Tensor, k: torch.Tensor,
     return torch.logsumexp(logits, dim=-1)
 
 
+def flash_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O), (B, H, N) fp32: one torch reduction, computed
+    outside the kernels as the JAX package computes it outside Pallas."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def _bwd_ds(q, k, v, dout, lse, delta, scale: float):
+    """fp32 P from lse and dS = P * (dO v^T - D) rounded to k's dtype, as
+    both Pallas backward kernels recompute them."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    return p, (p * (dp - delta.float()[..., None])).to(k.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
+    """Plain version of the dq kernel (``_dq_kernel``): dS k * scale."""
+    _, ds = _bwd_ds(q, k, v, dout, lse, delta, scale)
+    return (torch.matmul(ds.float(), k.float()) * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale: float):
+    """Plain version of the dk/dv kernel (``_dkv_kernel``): dS^T q * scale
+    and P^T dO, with P kept fp32 (dO was cast to fp32)."""
+    p, ds = _bwd_ds(q, k, v, dout, lse, delta, scale)
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, dout, scale: float):
+    """(dq, dk, dv) of softmax(q k^T * scale) v, (B, H, N, D) each, from the
+    forward's output and row logsumexp, with ``_flash_backward``'s numerics:
+    fp32 P from lse, dP from fp32 dO and v, dS rounded to k's dtype before
+    the dq and dk products, P kept fp32 for dv; outputs in the inputs'
+    dtypes."""
+    delta = flash_bwd_delta(out, dout)
+    return (flash_bwd_dq_reference(q, k, v, dout, lse, delta, scale),
+            *flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale))
+
+
+def _check_kernel_inputs(what: str, *tensors: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{what} needs CUDA tensors")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{what} takes bf16 tensors, got {[t.dtype for t in tensors]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} writes through raw pointers and would cut the autograd "
+                           f"graph: call flash_attention, whose autograd Function launches "
+                           f"the backward kernels")
+    shape = tensors[0].shape
+    if any(t.shape != shape for t in tensors) or len(shape) != 4:
+        raise ValueError(f"{what} needs equal (B, H, N, D) tensors, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    d = shape[-1]
+    if d % 8 or d > 128:
+        raise ValueError(f"{what} needs head dim % 8 == 0 and <= 128, got {d}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float):
-    """Launch the kernel on (B, H, N, D) bf16 CUDA tensors; returns
+    """Launch the forward kernel on (B, H, N, D) bf16 CUDA tensors; returns
     (out (B, H, N, D) bf16, lse (B, H, N) fp32)."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError(f"the flash kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape != k.shape or q.shape != v.shape or q.ndim != 4:
-        raise ValueError(f"flash kernel needs equal (B, H, N, D) q/k/v, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_kernel_inputs("flash_attention_cuda", q, k, v)
     b, h, n, d = q.shape
-    if d % 8 or d > 128:
-        raise ValueError(f"flash kernel needs head dim % 8 == 0 and <= 128, got {d}")
     qf = q.reshape(b * h, n, d).contiguous()
     kf = k.reshape(b * h, n, d).contiguous()
     vf = v.reshape(b * h, n, d).contiguous()
@@ -63,10 +121,85 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(b, h, n, d), lse.view(b, h, n)
 
 
+def _bwd_args(what: str, q, k, v, dout, lse, delta):
+    """Checks and (BH, N, D) / (BH, N) contiguous views for the backward
+    kernels."""
+    _check_kernel_inputs(what, q, k, v, dout)
+    b, h, n, d = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, n) or t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be fp32 CUDA ({b}, {h}, {n}), got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    qf, kf, vf, dof = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v, dout))
+    kernels.check_aligned(what, q=qf, k=kf, v=vf, dout=dof)
+    rows = (lse.reshape(b * h, n).contiguous(), delta.reshape(b * h, n).contiguous())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (qf, kf, vf, dof, *rows), stream
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
+    """Launch the dq kernel on (B, H, N, D) bf16 CUDA tensors, the forward's
+    lse and D (fp32 (B, H, N)); returns dq, bf16."""
+    ins, stream = _bwd_args("flash_bwd_dq", q, k, v, dout, lse, delta)
+    dq = torch.empty_like(ins[0])
+    b, h, n, d = q.shape
+    err = kernels.library("flash_bwd").flash_bwd_dq(
+        *(t.data_ptr() for t in ins), dq.data_ptr(), b * h, n, d, float(scale), stream)
+    kernels.check(err, "flash_bwd_dq")
+    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    return dq.view(b, h, n, d)
+
+
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
+    """Launch the dk/dv kernel on the same inputs; returns (dk, dv), bf16."""
+    ins, stream = _bwd_args("flash_bwd_dkv", q, k, v, dout, lse, delta)
+    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
+    b, h, n, d = q.shape
+    err = kernels.library("flash_bwd").flash_bwd_dkv(
+        *(t.data_ptr() for t in ins), dk.data_ptr(), dv.data_ptr(), b * h, n, d, float(scale),
+        stream)
+    kernels.check(err, "flash_bwd_dkv")
+    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk.view(b, h, n, d), dv.view(b, h, n, d)
+
+
+def flash_attention_backward_cuda(q, k, v, out, lse, dout, scale: float):
+    """(dq, dk, dv), bf16, through the two backward kernels, from the
+    forward's output and lse."""
+    delta = flash_bwd_delta(out, dout)
+    return (flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale),
+            *flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash_attention custom VJP. On CUDA tensors the forward and
+    backward launch the kernels; on CPU tensors they run the plain versions
+    of the same two functions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.is_cuda:
+            out, lse = flash_attention_cuda(q, k, v, scale)
+        else:
+            out = flash_attention_reference(q, k, v, scale)
+            lse = flash_attention_reference_lse(q, k, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            grads = flash_attention_backward_cuda(q, k, v, out, lse, dout, ctx.scale)
+        else:
+            grads = flash_attention_backward_reference(q, k, v, out, lse, dout, ctx.scale)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float = 1.0) -> torch.Tensor:
-    """softmax(q k^T * scale) v, (B, H, N, D): the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, scale)[0]
-    return flash_attention_reference(q, k, v, scale)
+    """softmax(q k^T * scale) v, (B, H, N, D), through
+    :class:`FlashAttention`: the kernels for CUDA tensors, the plain
+    versions for CPU tensors."""
+    return FlashAttention.apply(q, k, v, scale)

@@ -9,7 +9,12 @@ computes ``conv3x3(silu(x*s + t)) + bias`` without writing the activated
 image. :func:`norm_act_conv3x3_reference` is the plain version
 (``group_norm(act=silu)`` -> ``F.conv2d`` -> + bias, as JAX's
 ``_reference``): the CPU path and the test oracle, never a fallback on the
-card. On the card every shape goes through the kernel.
+card. Both go through :class:`NormActConv3x3`, the counterpart of the
+``_fused`` custom VJP: its forward launches the kernel on CUDA tensors (every
+shape) and runs the plain version on CPU tensors; its backward recomputes
+the plain version and returns its vjp, as ``_fused_bwd`` does (the JAX
+package has no backward kernel for it). The raw wrapper refuses inputs that
+would record a graph.
 """
 
 from __future__ import annotations
@@ -60,6 +65,10 @@ def fused_gn_silu_conv3x3(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
     weight (Cout, Cin, 3, 3) bf16 channels_last, bias (Cout,)."""
     if not x.is_cuda:
         raise ValueError("fused_gn_silu_conv3x3 needs CUDA tensors")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, s, t, weight, bias)):
+        raise RuntimeError("fused_gn_silu_conv3x3 writes through raw pointers and would cut "
+                           "the autograd graph: call norm_act_conv3x3, whose autograd "
+                           "Function differentiates the plain version")
     if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
         raise TypeError(f"the fused conv kernel takes bf16 x and weight, got "
                         f"{x.dtype} and {weight.dtype}")
@@ -92,11 +101,37 @@ def fused_gn_silu_conv3x3(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
     return out
 
 
+class NormActConv3x3(torch.autograd.Function):
+    """The ``_fused`` custom VJP: the forward takes the GN statistics and
+    launches the kernel (the plain version on CPU tensors); the backward
+    recomputes :func:`norm_act_conv3x3_reference` and returns its vjp for
+    x, gamma, beta, weight and bias."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, weight, bias, num_groups, eps, dtype):
+        if x.is_cuda:
+            s, t = gn_scale_shift(x, gamma, beta, num_groups, eps)
+            out = fused_gn_silu_conv3x3(x.to(dtype), s, t, weight, bias)
+        else:
+            out = norm_act_conv3x3_reference(x, gamma, beta, weight, bias, num_groups, eps,
+                                             dtype)
+        ctx.save_for_backward(x, gamma, beta, weight, bias)
+        ctx.args = (num_groups, eps, dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [a.detach().requires_grad_(need)
+                  for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [a for a in inputs if a.requires_grad]
+        with torch.enable_grad():
+            out = norm_act_conv3x3_reference(*inputs, *ctx.args)
+            got = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(got) if a.requires_grad else None for a in inputs), None, None, None)
+
+
 def norm_act_conv3x3(x, gamma, beta, weight, bias, *, num_groups: int = 32,
                      eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
-    """GroupNorm -> SiLU -> 3x3 SAME conv: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if not x.is_cuda:
-        return norm_act_conv3x3_reference(x, gamma, beta, weight, bias, num_groups, eps, dtype)
-    s, t = gn_scale_shift(x, gamma, beta, num_groups, eps)
-    return fused_gn_silu_conv3x3(x.to(dtype), s, t, weight, bias)
+    """GroupNorm -> SiLU -> 3x3 SAME conv through :class:`NormActConv3x3`:
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    return NormActConv3x3.apply(x, gamma, beta, weight, bias, num_groups, eps, dtype)

@@ -1,0 +1,106 @@
+"""Checkpoint and resume of the trainer's state.
+
+Counterpart of edgestyle_tpu/training/checkpoint.py with its semantics:
+only the train state {trainable, opt_state, step} is written (the frozen
+weights never are); the save reads back what it wrote and raises unless
+it is equal; ``checkpoint-<step>`` directories rotate under a total limit;
+``latest`` resumes from the newest step. The format is ``torch.save`` of
+the state moved to the host (one ``state.pt`` per directory), read back
+with ``weights_only=True``. The safetensors and reference-layout exports
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+
+from edgestyle_tpu_torch.core.device import DeviceLike, resolve_device
+
+STATE_FILE = "state.pt"
+
+
+def _dir(root: str, step: int) -> str:
+    return os.path.join(root, f"checkpoint-{step}")
+
+
+def _map(node, fn):
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    return fn(node) if isinstance(node, torch.Tensor) else node
+
+
+def _leaves(node, prefix=""):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, node
+
+
+def states_equal(a, b) -> bool:
+    """Same keys, equal tensors (bitwise, same dtype and shape) and equal
+    host values."""
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    if la.keys() != lb.keys():
+        return False
+    for k, x in la.items():
+        y = lb[k]
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            return False
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def save_checkpoint(root: str, state: Dict[str, Any], total_limit: Optional[int] = None) -> str:
+    """Write ``state`` to ``root/checkpoint-<step>/state.pt``; read it back
+    and raise unless equal; keep the newest ``total_limit`` checkpoints."""
+    step = int(state["step"])
+    path = os.path.abspath(_dir(root, step))
+    os.makedirs(path, exist_ok=True)
+    host = _map(state, lambda t: t.detach().cpu())
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(host, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    back = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    if not states_equal(host, back):
+        raise RuntimeError(f"checkpoint round-trip mismatch at {path}")
+    if total_limit is not None:
+        steps = list_checkpoints(root)
+        for s in steps[: max(0, len(steps) - total_limit)]:
+            shutil.rmtree(_dir(root, s), ignore_errors=True)
+    return path
+
+
+def list_checkpoints(root: str) -> List[int]:
+    if not os.path.isdir(root):
+        return []
+    steps = []
+    for d in os.listdir(root):
+        m = re.fullmatch(r"checkpoint-(\d+)", d)
+        if m:
+            steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def load_checkpoint(root: str, step: Union[str, int] = "latest",
+                    device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The train state of ``checkpoint-<step>`` (``latest``: the newest),
+    its tensors on ``device``."""
+    if step == "latest":
+        steps = list_checkpoints(root)
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {root}")
+        step = steps[-1]
+    dev = resolve_device(device)
+    path = os.path.join(os.path.abspath(_dir(root, int(step))), STATE_FILE)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return _map(state, lambda t: t.to(dev))

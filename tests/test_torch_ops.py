@@ -104,6 +104,94 @@ def test_flash_reference_matches_jax_pallas(rng, pallas_interpret, d):
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=ATOL)
 
 
+@pytest.mark.parametrize("d", [40, 80])
+def test_flash_backward_reference_matches_jax_pallas(rng, pallas_interpret, d):
+    """The port's plain flash backward against the JAX Pallas backward
+    kernels (interpret mode), fed the same forward output and lse, at two
+    blocks per axis so the accumulation over blocks is exercised."""
+    b, h, n = 1, 2, 256
+    q, k, v, g = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    out, lse = jflash._flash_forward(jq, jk, jv, scale, block_q=128, block_k=128,
+                                     return_lse=True)
+    ref = jflash._flash_backward(jq, jk, jv, out, lse, jnp.asarray(g), scale, block_q=128,
+                                 block_k=128)
+    got = flash.flash_attention_backward_reference(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, out, lse, g)), scale)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("route", ["flash_attention", "FlashAttention"])
+def test_flash_attention_autograd_matches_jax_vjp(rng, pallas_interpret, route):
+    """Gradients of q, k and v through the port's flash_attention and
+    through the FlashAttention Function it calls (CPU: the plain forward and
+    plain backward the card's kernels follow) against jax.vjp of the JAX
+    custom VJP, whose backward is the Pallas kernels."""
+    b, h, n, d = 1, 2, 256, 40
+    q, k, v, g = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    fwd = functools.partial(jflash._flash_forward, block_q=128, block_k=128)
+    bwd = functools.partial(jflash._flash_backward, block_q=128, block_k=128)
+
+    @jax.custom_vjp
+    def jattn(q, k, v):
+        return fwd(q, k, v, scale)
+
+    def jattn_fwd(q, k, v):
+        out, lse = fwd(q, k, v, scale, return_lse=True)
+        return out, (q, k, v, out, lse)
+
+    jattn.defvjp(jattn_fwd, lambda res, gr: bwd(*res, gr, scale))
+    ref_out, vjp = jax.vjp(jattn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    fn = flash.flash_attention if route == "flash_attention" else flash.FlashAttention.apply
+    out = fn(qt, kt, vt, scale)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), atol=ATOL)
+    for name, t, r in zip("qkv", (qt, kt, vt), ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("route", ["norm_act_conv3x3", "NormActConv3x3"])
+def test_norm_act_conv3x3_autograd_matches_jax_vjp(route, monkeypatch):
+    """Gradients of all five inputs (x, GN scale and shift, kernel, bias)
+    through the port's op and through the NormActConv3x3 Function it calls
+    (CPU: its backward recomputes the plain version, as on the card) against
+    jax.vjp of JAX's ``_fused`` custom VJP, whose forward is the Pallas
+    kernel (interpret mode)."""
+    monkeypatch.setattr(jfc, "_FORCE_INTERPRET", True)
+    b, h, w, cin, cout, groups = 2, 6, 5, 32, 16, 8
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    gamma = rng.standard_normal(cin).astype(np.float32)
+    beta = rng.standard_normal(cin).astype(np.float32)
+    k = (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    g = rng.standard_normal((b, h, w, cout)).astype(np.float32)
+    ref_out, vjp = jax.vjp(lambda *a: jfc._fused(*a, groups, 1e-5, jnp.float32),
+                           *(jnp.asarray(a) for a in (x, gamma, beta, k, bias)))
+    ref = vjp(jnp.asarray(g))
+    xt = nchw(x).requires_grad_(True)
+    wt = torch.from_numpy(k).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    inputs = [xt, torch.from_numpy(gamma).requires_grad_(True),
+              torch.from_numpy(beta).requires_grad_(True), wt.requires_grad_(True),
+              torch.from_numpy(bias).requires_grad_(True)]
+    if route == "norm_act_conv3x3":
+        out = fused_conv.norm_act_conv3x3(*inputs, num_groups=groups, eps=1e-5,
+                                          dtype=torch.float32)
+    else:
+        out = fused_conv.NormActConv3x3.apply(*inputs, groups, 1e-5, torch.float32)
+    out.backward(nchw(g))
+    np.testing.assert_allclose(nhwc(out), np.asarray(ref_out), atol=ATOL, rtol=1e-4)
+    got = [nhwc(xt.grad), inputs[1].grad.numpy(), inputs[2].grad.numpy(),
+           inputs[3].grad.permute(2, 3, 1, 0).numpy(), inputs[4].grad.numpy()]
+    for name, a, r in zip(("x", "gamma", "beta", "kernel", "bias"), got, ref):
+        np.testing.assert_allclose(a, np.asarray(r), atol=1e-3, rtol=1e-4, err_msg=name)
+
+
 @pytest.mark.parametrize("nq,nk,heads", [(64, 7, 2), (16, 16, 1), (1024, 1024, 2)])
 def test_multi_head_attention_matches_jax(rng, nq, nk, heads):
     c = 16
@@ -256,3 +344,109 @@ def test_fused_conv_kernel_matches_plain_on_card(cuda, b, cin, h, w, cout):
                                                 torch.bfloat16)
     # bf16 outputs |y| < 16 plus 1-ulp activation roundings
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-1, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,n,d", [(2, 1000, 64), (4, 256, 40), (16, 4096, 40), (16, 1024, 80)])
+def test_flash_backward_kernels_match_plain_on_card(cuda, bh, n, d):
+    """flash_bwd_dq and flash_bwd_dkv against the plain backward on the same
+    forward output and lse, at small shapes (one with a ragged last tile)
+    and the SD1.5 ones. Each gradient is held to 2^-5 of its largest value:
+    the kernels round P to bf16 for dv (the plain version keeps it fp32)
+    and sum in another order, a few bf16 ulps of the largest gradient."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, g = (torch.randn((1, bh, n, d), generator=gen, device=cuda).to(torch.bfloat16)
+                  for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash.flash_attention_cuda(q, k, v, scale)
+    got = flash.flash_attention_backward_cuda(q, k, v, out, lse, g, scale)
+    ref = flash.flash_attention_backward_reference(q, k, v, out, lse, g, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        atol = 2.0 ** -5 * r.float().abs().max().item()
+        torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=0, msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_function_matches_plain_on_card(cuda):
+    """Autograd through flash_attention on bf16 CUDA tensors (the
+    FlashAttention Function: forward kernel, both backward kernels) against
+    autograd through the plain version, same inputs and output gradient."""
+    from edgestyle_tpu_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, g = (torch.randn((2, 4, 1024, 40), generator=gen, device=cuda).to(torch.bfloat16)
+                  for _ in range(4))
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = dict(kernels.LAUNCHES)
+        if route == "kernel":
+            out = flash.flash_attention(*leaves, scale=40 ** -0.5)
+        else:
+            out = flash.flash_attention_reference(*leaves, 40 ** -0.5)
+        out.backward(g)
+        launched = {n: kernels.LAUNCHES[n] - before[n]
+                    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        assert launched == ({n: 1 for n in launched} if route == "kernel"
+                            else {n: 0 for n in launched})
+        grads[route] = [t.grad.float() for t in leaves]
+    for name, a, r in zip("qkv", grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, r, atol=2.0 ** -5 * r.abs().max().item(), rtol=0, msg=name)
+
+
+@pytest.mark.gpu
+def test_norm_act_conv_autograd_function_matches_plain_on_card(cuda):
+    """Autograd through norm_act_conv3x3 on bf16 CUDA tensors (the
+    NormActConv3x3 Function: the kernel forward, the plain version's vjp
+    backward) against autograd through the plain version, all five inputs."""
+    from edgestyle_tpu_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 64, 16, 16), generator=gen, device=cuda).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.1 * torch.randn((64,), generator=gen, device=cuda)
+    beta = 0.1 * torch.randn((64,), generator=gen, device=cuda)
+    wt = (torch.randn((32, 64, 3, 3), generator=gen, device=cuda) / 24.0).to(torch.bfloat16)
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    bias = 0.1 * torch.randn((32,), generator=gen, device=cuda)
+    g = torch.randn((2, 32, 16, 16), generator=gen, device=cuda).to(torch.bfloat16)
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, wt, bias)]
+        leaves[0] = leaves[0].detach().contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        leaves[3] = leaves[3].detach().contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        before = kernels.LAUNCHES["fused_gn_silu_conv3x3"]
+        if route == "kernel":
+            out = fused_conv.norm_act_conv3x3(*leaves, num_groups=32, dtype=torch.bfloat16)
+        else:
+            out = fused_conv.norm_act_conv3x3_reference(*leaves, 32, 1e-5, torch.bfloat16)
+        out.backward(g)
+        assert kernels.LAUNCHES["fused_gn_silu_conv3x3"] - before == (route == "kernel")
+        grads[route] = [t.grad.float() for t in leaves]
+    # the backward is the same plain vjp on the same saved inputs; cuDNN may
+    # sum a weight gradient in another order from call to call: 2^-7 of the
+    # largest value, one or two bf16 ulps there
+    for name, a, r in zip(("x", "gamma", "beta", "weight", "bias"), grads["kernel"],
+                          grads["plain"]):
+        torch.testing.assert_close(a, r, atol=2.0 ** -7 * r.abs().max().item(), rtol=0,
+                                   msg=name)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
+    """The raw wrappers write through pointers, which autograd cannot see:
+    they raise when a graph would be recorded, so no caller cuts it."""
+    q = torch.zeros((1, 1, 64, 40), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        flash.flash_attention_cuda(q, q, q, 0.1)
+    x = torch.zeros((1, 32, 4, 4), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    s = torch.zeros((1, 32), device=cuda)
+    w = torch.zeros((8, 32, 3, 3), device=cuda, dtype=torch.bfloat16)
+    w = w.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(RuntimeError, match="autograd"):
+        fused_conv.fused_gn_silu_conv3x3(x, s, s, w, torch.zeros(8, device=cuda))
+    with torch.no_grad():
+        flash.flash_attention_cuda(q, q, q, 0.1)
