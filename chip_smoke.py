@@ -7,15 +7,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
   1. the card (nvidia-smi name and power limit) and the kernel build time;
   2. kernel phase: every hand-written kernel against its plain PyTorch
-     version on the card, at the full-width shapes its path gives it, with
-     its time, the plain version's time, one PyTorch library call of the
-     same function as a yardstick (never used by the port) and the least
-     time the card could take (the bound); and the fused conv's bf16
-     activations against bf16(exact silu);
+     version on the card, at the full-width shapes its path gives it (the
+     fused conv and the GN statistics also on the fp32 x of the LoRA
+     trunks' first convs), with its time, the plain version's time, one
+     PyTorch library call of the same function as a yardstick (never used by
+     the port) and the least time the card could take (the bound); and the
+     fused conv's bf16 activations against bf16(exact silu), on bf16 and
+     fp32 x;
   3. generation phase: the full-width SD1.5 6-branch try-on
      (``EdgeStylePipeline.__call__``, 512 px, 20 UniPC steps, bf16) from the
      port's random init, for a few requests, with the kernels' launch counts
-     read around the requests;
+     read around the requests against the counts the code predicts;
   4. end-to-end check: the same generation at 2 steps through the kernels
      and through the ops' plain versions, image max-abs difference under a
      stated bf16 tolerance;
@@ -54,6 +56,7 @@ sys.path.insert(0, HERE)
 
 # H100 SXM published dense peaks (NVIDIA data sheet), used for the bounds.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Kernel against plain version: max-abs error <= REL_TOL * max|plain output|,
@@ -63,6 +66,13 @@ PEAK_BYTES = 3.35e12
 # share of its output.
 REL_TOL = 2.0 ** -6
 LSE_TOL = 1e-2     # fp32 row logsumexp of values ~log(N) + 0.5
+# GN statistics kernel against the plain statistics, relative on s and on
+# mean * s in t: fp32 sums in another order, 1e-4; for bf16 x the single-pass
+# variance E[x^2] - E[x]^2 loses mean^2 / var of its fp32 rounding to
+# cancellation, GN_CANCEL_TOL of that ratio (a mean of +40 at a spread of
+# 1.1: 1e-4 + 2.6e-3).
+GN_REL_TOL = 1e-4
+GN_CANCEL_TOL = 2e-6
 # The conv's bf16 activations against exact silu: a fast-math silu a few
 # fp32 ulps from exact moves a bf16 rounding for ~2^-13 of the values, and
 # then by one ulp.
@@ -93,18 +103,25 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, iters: int = 10, warmup: int = 2, queue_ahead: bool = True) -> float:
+    """Milliseconds per call from CUDA events around `iters` back-to-back
+    calls. With queue_ahead the calls are queued behind a sleep kernel of
+    about 5 ms, so the events time the card alone; without it, a call whose
+    host work (Python wrappers, launches) outlasts its device work is timed
+    at the host's rate, as a caller issuing the calls back to back sees it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -137,12 +154,22 @@ FLASH_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8, 6 * 8) for n, d in ((4096, 4
 # Backward: the UNet's up blocks and the two LoRA trunks (the static trunk
 # is frozen).
 FLASH_BWD_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8) for n, d in ((4096, 40), (1024, 80))]
-CONV_SHAPES = [  # (B, Cin, H, W, Cout)
-    (2, 320, 64, 64, 320),
-    (2, 1920, 32, 32, 640),
-    (2, 1280, 8, 8, 1280),
-    (1, 128, 512, 512, 128),
+CONV_SHAPES = [  # (B, Cin, H, W, Cout, x dtype)
+    (2, 320, 64, 64, 320, torch.bfloat16),
+    (2, 1920, 32, 32, 640, torch.bfloat16),
+    (2, 1280, 8, 8, 1280, torch.bfloat16),
+    (1, 128, 512, 512, 128, torch.bfloat16),
+    # conv1 of down block 0's ResNet blocks in the LoRA trunks at B=1 (the
+    # lora_0 and lora_1 trunks): x = conv_in(sample) + the fp32 VAE-branch
+    # embedding stays fp32 until the first downsampler
+    (2, 320, 64, 64, 320, torch.float32),
+    (4, 320, 64, 64, 320, torch.float32),
 ]
+# The GN statistics at the bf16 conv shapes, and at (2, 320, 64, 64) with
+# channel means of +40: fp32 (where the two-pass variance matters) and bf16
+# (where the single-pass one cancels).
+GN_SHAPES = [(b, c, h, w, dt, 0.0) for b, c, h, w, _, dt in CONV_SHAPES[:4]] + [
+    (2, 320, 64, 64, torch.float32, 40.0), (2, 320, 64, 64, torch.bfloat16, 40.0)]
 
 
 def kernel_phase(dev):
@@ -180,15 +207,18 @@ def kernel_phase(dev):
     records.append(("flash_fwd", "edgestyle_tpu_torch/kernels/flash_fwd.cu",
                     "edgestyle_tpu/ops/flash.py:42", shapes))
 
+    records.append(gn_phase(dev, gen))
     shapes = []
-    for b, cin, h, w, cout in CONV_SHAPES:
-        x = torch.randn((b, cin, h, w), generator=gen, device=dev).to(torch.bfloat16)
-        x = x.contiguous(memory_format=torch.channels_last)
+    for b, cin, h, w, cout, dt in CONV_SHAPES:
+        x = torch.randn((b, cin, h, w), generator=gen, device=dev)
+        if dt == torch.float32:
+            x = x + 40.0
+        x = x.to(dt).contiguous(memory_format=torch.channels_last)
         gamma = 1.0 + 0.1 * torch.randn((cin,), generator=gen, device=dev)
         beta = 0.1 * torch.randn((cin,), generator=gen, device=dev)
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               / math.sqrt(9 * cin)).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        bias = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+        bias = (0.1 * torch.randn((cout,), generator=gen, device=dev)).to(torch.bfloat16)
         eps = 1e-6 if h == 512 else 1e-5
         s, t = fused_conv.gn_scale_shift(x, gamma, beta, 32, eps)
         out = fused_conv.fused_gn_silu_conv3x3(x, s, t, wt, bias)
@@ -198,35 +228,91 @@ def kernel_phase(dev):
         err = (out.float() - ref.float()).abs().max().item()
         tol = REL_TOL * ref.float().abs().max().item()
         # ms: the kernel alone, on precomputed s, t; op_ms: the op the main
-        # path calls (GN statistics + kernel), like for like with plain_ms
+        # path calls (GN statistics kernel + conv kernel), like for like
+        # with plain_ms; op_wall_ms: the op called back to back, host
+        # included, as a caller issuing it from Python sees it
         ms = time_ms(lambda: fused_conv.fused_gn_silu_conv3x3(x, s, t, wt, bias))
-        op_ms = time_ms(lambda: fused_conv.norm_act_conv3x3(
-            x, gamma, beta, wt, bias, num_groups=32, eps=eps, dtype=torch.bfloat16))
+        op = lambda: fused_conv.norm_act_conv3x3(  # noqa: E731
+            x, gamma, beta, wt, bias, num_groups=32, eps=eps, dtype=torch.bfloat16)
+        op_ms = time_ms(op)
+        op_wall_ms = time_ms(op, queue_ahead=False)
         plain_ms = time_ms(lambda: fused_conv.norm_act_conv3x3_reference(
             x, gamma, beta, wt, bias, 32, eps, torch.bfloat16))
         act = F.silu(x.float() * s[:, :, None, None] + t[:, :, None, None]).to(torch.bfloat16)
         act = act.contiguous(memory_format=torch.channels_last)
-        bias_bf = bias.to(torch.bfloat16)
-        lib_ms = time_ms(lambda: F.conv2d(act, wt, bias_bf, padding=1))
+        lib_ms = time_ms(lambda: F.conv2d(act, wt, bias, padding=1))
         flops = 2.0 * b * h * w * 9 * cin * cout
-        nbytes = b * h * w * cin * 2 + 2 * b * cin * 4 + 9 * cin * cout * 2 + cout * 4 \
-            + b * h * w * cout * 2
+        nbytes = b * h * w * cin * x.element_size() + 2 * b * cin * 4 + 9 * cin * cout * 2 \
+            + cout * 2 + b * h * w * cout * 2
         b_ms, b_by = bound_ms(flops, nbytes)
-        print(f"fused_gn_silu_conv3x3 x=({b},{cin},{h},{w}) -> {cout}: max_abs_err={err:.3e} "
-              f"(tol {tol:.3e}; mean |ref| {ref.float().abs().mean().item():.3e}) ms={ms:.4f} "
-              f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} conv2d_ms={lib_ms:.4f} "
+        splits = fused_conv.conv_plan(b, h, w, cin, cout)[4]
+        print(f"fused_gn_silu_conv3x3 x=({b},{cin},{h},{w}) {str(dt)[6:]} -> {cout} "
+              f"(splits {splits}): max_abs_err={err:.3e} (tol {tol:.3e}; mean |ref| "
+              f"{ref.float().abs().mean().item():.3e}) ms={ms:.4f} op_ms={op_ms:.4f} "
+              f"op_wall_ms={op_wall_ms:.4f} plain_ms={plain_ms:.4f} conv2d_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if not err <= tol:
-            fail(f"fused conv disagrees with its plain version at {(b, cin, h, w, cout)}")
-        shapes.append(dict(shape=[b, cin, h, w, cout], max_abs_err=err, ms=ms, op_ms=op_ms,
+            fail(f"fused conv disagrees with its plain version at {(b, cin, h, w, cout, dt)}")
+        shapes.append(dict(shape=[b, cin, h, w, cout], x_dtype=str(dt)[6:], splits=splits,
+                           max_abs_err=err, ms=ms, op_ms=op_ms, op_wall_ms=op_wall_ms,
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     records.append(("fused_gn_silu_conv3x3", "edgestyle_tpu_torch/kernels/fused_conv.cu",
                     "edgestyle_tpu/ops/fused_conv.py:88", shapes))
-    activation_check(dev, gen)
+    for dt in (torch.bfloat16, torch.float32):
+        activation_check(dev, gen, dt)
     records += flash_bwd_phase(dev, gen)
     # launches made for the comparison do not count
     kernels.reset_launches()
     return records
+
+
+def gn_phase(dev, gen):
+    """The GN statistics kernel against the plain statistics (the
+    composition of torch reductions it replaces), with one torch.var_mean
+    over the grouped view as the library yardstick. The tolerance is
+    GN_REL_TOL, loosened for bf16 x by the single-pass cancellation."""
+    from edgestyle_tpu_torch.ops import fused_conv
+
+    shapes = []
+    for b, c, h, w, dt, mean in GN_SHAPES:
+        x = (mean + torch.randn((b, c, h, w), generator=gen, device=dev)
+             + 0.5 * torch.randn((1, c, 1, 1), generator=gen, device=dev))
+        x = x.to(dt).contiguous(memory_format=torch.channels_last)
+        gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        beta = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        eps = 1e-6 if h == 512 else 1e-5
+        s, t = fused_conv.gn_scale_shift_cuda(x, gamma, beta, 32, eps)
+        torch.cuda.synchronize()
+        rs, rt = fused_conv.gn_scale_shift_reference(x, gamma, beta, 32, eps)
+        grouped = x.permute(0, 2, 3, 1).reshape(b, h * w, 32, c // 32)
+        var, mu = torch.var_mean(grouped.float(), dim=(1, 3), correction=0)
+        ratio = (mu.square() / var).repeat_interleave(c // 32, dim=1)
+        rtol = GN_REL_TOL + (GN_CANCEL_TOL * ratio if dt == torch.bfloat16 else 0.0)
+        mean_s = (mu.repeat_interleave(c // 32, dim=1) * rs).abs()
+        s_err = ((s - rs).abs() / (rtol * rs.abs())).max().item()
+        t_err = ((t - rt).abs() / (rtol * mean_s + 1e-5)).max().item()
+        err = max((s - rs).abs().max().item(), (t - rt).abs().max().item())
+        again = fused_conv.gn_scale_shift_cuda(x, gamma, beta, 32, eps)
+        same = torch.equal(again[0], s) and torch.equal(again[1], t)
+        ms = time_ms(lambda: fused_conv.gn_scale_shift_cuda(x, gamma, beta, 32, eps))
+        plain_ms = time_ms(lambda: fused_conv.gn_scale_shift_reference(x, gamma, beta, 32, eps))
+        lib_ms = time_ms(lambda: torch.var_mean(grouped, dim=(1, 3)))
+        n = x.numel()
+        b_ms, b_by = bound_ms(3.0 * n, n * x.element_size() + 2 * c * 4 + 2 * b * c * 4,
+                              PEAK_FP32_FLOPS)
+        print(f"gn_scale_shift x=({b},{c},{h},{w}) {str(dt)[6:]} mean {mean}: max_abs_err="
+              f"{err:.3e}, worst error / tolerance: s {s_err:.3f}, t {t_err:.3f} (tol 1; rtol "
+              f"{GN_REL_TOL} + {GN_CANCEL_TOL if dt == torch.bfloat16 else 0} * mean^2/var, "
+              f"max ratio {ratio.max().item():.1f}); deterministic {same}; ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} var_mean_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
+        if not (s_err <= 1 and t_err <= 1 and same):
+            fail(f"gn_scale_shift disagrees with the plain statistics at {(b, c, h, w, dt)}")
+        shapes.append(dict(shape=[b, c, h, w], x_dtype=str(dt)[6:], mean=mean, max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms))
+    return ("gn_scale_shift", "edgestyle_tpu_torch/kernels/gn_stats.cu",
+            "edgestyle_tpu/ops/fused_conv.py:50", shapes)
 
 
 def flash_bwd_phase(dev, gen):
@@ -291,16 +377,16 @@ def bf16_order(a: torch.Tensor) -> torch.Tensor:
     return torch.where(i < 0, -(i & 0x7FFF), i)
 
 
-def activation_check(dev, gen) -> None:
-    """The fused conv's bf16 activations against bf16(exact silu): with an
-    identity centre-tap weight and zero bias, each output is one activation
-    times 1 plus zeros, so the kernel writes its activation unchanged.
-    Pre-activations ~N(-1, 2.7) reach the negative range where silu is a
-    small difference."""
+def activation_check(dev, gen, dtype) -> None:
+    """The fused conv's bf16 activations against bf16(exact silu) of x in
+    dtype: with an identity centre-tap weight and zero bias, each output is
+    one activation times 1 plus zeros, so the kernel writes its activation
+    unchanged. Pre-activations ~N(-1, 2.7) reach the negative range where
+    silu is a small difference."""
     from edgestyle_tpu_torch.ops import fused_conv
 
     b, c, h, w = 2, 320, 64, 64
-    x = torch.randn((b, c, h, w), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((b, c, h, w), generator=gen, device=dev).to(dtype)
     x = x.contiguous(memory_format=torch.channels_last)
     s = 2.5 * (1.0 + 0.1 * torch.randn((b, c), generator=gen, device=dev))
     t = torch.randn((b, c), generator=gen, device=dev) - 1.0
@@ -313,12 +399,13 @@ def activation_check(dev, gen) -> None:
     ref = (a * torch.sigmoid(a)).to(torch.bfloat16)
     ulps = (bf16_order(out) - bf16_order(ref)).abs()
     share = (ulps > 0).double().mean().item()
-    print(f"fused conv activations vs bf16(exact silu), {ulps.numel()} values, "
+    print(f"fused conv activations vs bf16(exact silu), {str(dtype)[6:]} x, {ulps.numel()} "
+          f"values, "
           f"pre-activation in [{a.min().item():.2f}, {a.max().item():.2f}]: "
           f"share rounded otherwise {share:.3e} (tol {ACT_SHARE_TOL}), "
           f"max {ulps.max().item()} bf16 ulps (tol 1)", flush=True)
     if not (share <= ACT_SHARE_TOL and ulps.max().item() <= 1):
-        fail("the fused conv's activations stray from bf16(silu)")
+        fail(f"the fused conv's activations stray from bf16(silu) on {dtype} x")
 
 
 # ------------------------------------------------------------- generation
@@ -372,6 +459,19 @@ def check_images(out, b: int, what: str) -> None:
         fail(f"{what}: image range [{lo}, {hi}] std {std}")
 
 
+# Launches per generation (any batch), from the code at SD1.5 width, 512 px,
+# 20 steps: flash_fwd at the 22 self-attentions with >= 1024 tokens per
+# denoise step (the UNet's 10, 4 in each of the 3 trunks); one GN statistics
+# and one conv launch per fused conv: 104 a step (2 per ResNet block: the
+# UNet's 22 and each trunk's 10), plus the VAE's 48 (encoder 10 blocks for
+# the three VAE conds in one batch, decoder 14).
+GEN_STEPS = 20
+GEN_LAUNCHES_PER_REQUEST = {"flash_fwd": 22 * GEN_STEPS,
+                            "gn_scale_shift": 104 * GEN_STEPS + 2 * (10 + 14),
+                            "fused_gn_silu_conv3x3": 104 * GEN_STEPS + 2 * (10 + 14),
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
 def generation_phase(dev, pipe, params, gen):
     from edgestyle_tpu_torch import kernels
 
@@ -395,15 +495,18 @@ def generation_phase(dev, pipe, params, gen):
         before = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe(params, ids, neg, imgs, latents=lat, num_inference_steps=20,
+        out = pipe(params, ids, neg, imgs, latents=lat, num_inference_steps=GEN_STEPS,
                    guidance_scale=g)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         check_images(out, b, what)
         per = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-        print(f"request {what}, 20 UniPC steps, 512 px: {dt:.3f} s, {b / dt:.4f} images/s, "
-              f"image mean {out.mean().item():.4f} std {out.std().item():.4f}, "
+        print(f"request {what}, {GEN_STEPS} UniPC steps, 512 px: {dt:.3f} s, {b / dt:.4f} "
+              f"images/s, image mean {out.mean().item():.4f} std {out.std().item():.4f}, "
               f"launches per generation {per}", flush=True)
+        if per != GEN_LAUNCHES_PER_REQUEST:
+            fail(f"the generation's kernel launches differ from the counts the code predicts "
+                 f"{GEN_LAUNCHES_PER_REQUEST}")
     totals = dict(kernels.LAUNCHES)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return totals
@@ -431,7 +534,9 @@ def profile_phase(dev, pipe, params, gen, out_dir: str) -> None:
         for ms, n, key in rows:
             f.write(f"{ms:12.3f} ms {n:7d}x  {key}\n")
     print(f"profile (B=1, 20 steps, profiler on): wall {wall:.3f} s, device busy {busy:.3f} s "
-          f"({100 * busy / wall:.1f}%), idle share {100 * (1 - busy / wall):.1f}%", flush=True)
+          f"({100 * busy / wall:.1f}%), idle share {100 * (1 - busy / wall):.1f}%, "
+          f"{sum(r[1] for r in rows)} device launches", flush=True)
+    _print_families(rows, busy)
     for ms, n, key in rows[:12]:
         print(f"  {ms:10.3f} ms {100 * ms / 1e3 / busy:5.1f}% {n:6d}x {key[:90]}", flush=True)
 
@@ -475,13 +580,15 @@ TRAIN_ARGV = ["--random_init", "--resolution", "512", "--train_batch_size", "2",
 # Launches per micro-step, from the code at SD1.5 width and 512 px:
 #   flash_fwd: every self-attention with >= 1024 tokens: the UNet's 10 (down
 #     blocks 0-1, up blocks 2-3) and 4 in each of the 3 ControlNet trunks;
-#   fused conv: 2 per ResNet block: the VAE encoder's 10 (run twice: the
-#     image, then the three VAE conds), the UNet's 22, each trunk's 10;
+#   fused conv, and the GN statistics before each: 2 per ResNet block: the
+#     VAE encoder's 10 (run twice: the image, then the three VAE conds), the
+#     UNet's 22, each trunk's 10;
 #   flash_bwd_*: only attentions whose output needs a gradient: the UNet's
 #     up-block self-attentions (6; its down path sees no trainable) and the
 #     two LoRA trunks' 4 each (the static trunk is frozen and has no
 #     trainable upstream).
 TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 10 + 3 * 4,
+                           "gn_scale_shift": 2 * (2 * 10 + 22 + 3 * 10),
                            "fused_gn_silu_conv3x3": 2 * (2 * 10 + 22 + 3 * 10),
                            "flash_bwd_dq": 6 + 2 * 4, "flash_bwd_dkv": 6 + 2 * 4}
 
@@ -699,18 +806,24 @@ def profile_train_step(dev, built, out_dir: str) -> None:
         wall = time.perf_counter() - t0
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
-    families = {}
-    for ms, n, key in rows:
-        fam = _family(key)
-        t, c = families.get(fam, (0.0, 0))
-        families[fam] = (t + ms, c + n)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
         f.write(f"wall {wall:.4f} s, device busy {busy:.4f} s\n")
         for ms, n, key in rows:
             f.write(f"{ms:12.3f} ms {n:7d}x  {key}\n")
     print(f"profile (one training step, micro-batch 2, profiler on): wall {wall:.3f} s, device "
-          f"busy {busy:.3f} s ({100 * busy / wall:.1f}%)", flush=True)
+          f"busy {busy:.3f} s ({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} device "
+          f"launches", flush=True)
+    _print_families(rows, busy)
+
+
+def _print_families(rows, busy: float) -> None:
+    """Device time and launches by kernel family."""
+    families = {}
+    for ms, n, key in rows:
+        fam = _family(key)
+        t, c = families.get(fam, (0.0, 0))
+        families[fam] = (t + ms, c + n)
     for fam, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
         print(f"  {fam}: {ms:.3f} ms {100 * ms / 1e3 / busy:5.1f}% {n}x", flush=True)
 
@@ -732,8 +845,9 @@ def _family(key: str) -> str:
     for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_kernel"):
         if name in key:
             return name
-    if "fused_gn_silu_conv3x3" in key or "split_sum_kernel" in key:
-        return "fused conv (fused_conv.cu)"
+    if ("fused_gn_silu_conv3x3" in key or "split_sum_kernel" in key
+            or "gn_stats_kernel" in key):
+        return "fused conv (gn_stats.cu + fused_conv.cu)"
     low = key.lower()
     if "conv" in low or "cudnn" in low or "dgrad" in low or "wgrad" in low:
         return "cuDNN convolutions (conv backward, 1x1 and strided convs)"
@@ -799,8 +913,9 @@ def main() -> int:
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
-    paths = {"flash_fwd": "generation", "fused_gn_silu_conv3x3": "generation",
-             "flash_bwd_dq": "training", "flash_bwd_dkv": "training"}
+    paths = {"flash_fwd": "generation", "gn_scale_shift": "generation",
+             "fused_gn_silu_conv3x3": "generation", "flash_bwd_dq": "training",
+             "flash_bwd_dkv": "training"}
     by_path = {"generation": launches, "training": train_launches}
     out = []
     for name, source, replaces, shapes in records:

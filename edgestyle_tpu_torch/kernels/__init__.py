@@ -44,8 +44,13 @@ SOURCES = {
     "flash_fwd": ("flash_fwd.cu", {
         "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
     }),
+    "gn_stats": ("gn_stats.cu", {
+        "gn_scale_shift": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+                           _P),
+    }),
     "fused_conv": ("fused_conv.cu", {
-        "fused_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "fused_gn_silu_conv3x3": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P),
     }),
     "flash_bwd": ("flash_bwd.cu", {
         "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
@@ -53,8 +58,8 @@ SOURCES = {
     }),
 }
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "fused_gn_silu_conv3x3": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "gn_scale_shift": 0, "fused_gn_silu_conv3x3": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _locks = {name: threading.Lock() for name in SOURCES}

@@ -257,21 +257,107 @@ def test_gn_scale_shift_bf16_matches_jax(rng):
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,cin,cout", [
-    (2 * 64 * 64, 320, 320), (2 * 32 * 32, 1920, 640), (2 * 8 * 8, 1280, 1280),
-    (512 * 512, 128, 128), (12 * 8 * 8, 1280, 1280), (7, 32, 8)])
-def test_conv_splits_stay_in_range(m, cin, cout):
-    """The split-K count: 1 once the 128x128 tiles fill the 132 SMs; else
-    enough splits to fill them, unless capped at 16 or at an eighth of the
-    K slices (the kernel refuses more splits than slices)."""
-    splits = fused_conv.conv_splits(m, cin, cout)
-    tiles = -(-m // 128) * -(-cout // 128)
-    cap = min(16, max(1, 9 * cin // (64 if cin % 64 == 0 else 32) // 8))
-    assert 1 <= splits <= cap
+def _fused_inputs(rng, b, h, w, cin, cout, mean=0.0):
+    """NHWC x with per-channel means about ``mean`` and a spread about 1, GN
+    affine, HWIO kernel and bias, as numpy fp32."""
+    x = (mean + rng.standard_normal((b, h, w, cin))
+         + 0.5 * rng.standard_normal(cin)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(cin)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(cin)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, cin, cout)) / math.sqrt(9 * cin)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    return x, gamma, beta, k, bias
+
+
+def _oihw(k, dtype):
+    return torch.from_numpy(k).permute(3, 2, 0, 1).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_route_matches_jax_reference(dtype):
+    """The card's route of the op (GN scale/shift, then the conv on x in its
+    own type), with the conv kernel's plain version in the kernel's place,
+    against JAX's ``_reference`` at dtype bf16, on x whose channels have a
+    mean of about +40 and a spread of about 1: the trunks' first convs see
+    such an fp32 x. Rounding x to bf16 before the affine (the route before
+    this check) is off by up to 2^-9 * 40 / std in the normalised value:
+    0.148 here. Held to 2^-6 of the largest output (2 to 4 bf16 ulps there):
+    both sides round the activation and the output to bf16 once, at values
+    that differ by fp32 rounding."""
+    b, h, w, cin, cout, groups = 2, 8, 6, 64, 32, 32
+    x, gamma, beta, k, bias = _fused_inputs(np.random.default_rng(3), b, h, w, cin, cout, 40.0)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    ref = np.asarray(jfc._reference(jx, jnp.asarray(gamma), jnp.asarray(beta), jnp.asarray(k),
+                                    jnp.asarray(bias), groups, 1e-5, jnp.bfloat16))
+    ref = ref.astype(np.float32)
+    xt = nchw(np.asarray(jx.astype(jnp.float32))).to(dtype)
+    xt = xt.contiguous(memory_format=torch.channels_last)
+    out = fused_conv.fused_route(xt, torch.from_numpy(gamma), torch.from_numpy(beta),
+                                 _oihw(k, torch.bfloat16),
+                                 torch.from_numpy(bias).to(torch.bfloat16), groups, 1e-5,
+                                 conv=fused_conv.fused_gn_silu_conv3x3_reference)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(nhwc(out), ref, atol=2.0 ** -6 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv_plain_matches_jax_pallas(dtype):
+    """The conv kernel's plain version against JAX's ``_pallas_forward``
+    (interpret mode) fed JAX's ``_gn_scale_shift``, on x and kernel in
+    dtype: fp32 to summation order, bf16 to one rounding of the output (the
+    two sum the bf16 products in another order)."""
+    b, h, w, cin, cout, groups = 2, 6, 5, 64, 32, 8
+    x, gamma, beta, k, bias = _fused_inputs(np.random.default_rng(4), b, h, w, cin, cout)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx = jnp.asarray(x, jdt)
+    js, jt = jfc._gn_scale_shift(jx, jnp.asarray(gamma), jnp.asarray(beta), groups, 1e-5)
+    ref = np.asarray(jfc._pallas_forward(jx, js, jt, jnp.asarray(k, jdt), jnp.asarray(bias),
+                                         interpret=True)).astype(np.float32)
+    xt = nchw(np.asarray(jx.astype(jnp.float32))).to(dtype)
+    s, t = (torch.from_numpy(np.array(a)) for a in (js, jt))
+    out = fused_conv.fused_gn_silu_conv3x3_reference(xt, s, t, _oihw(k, dtype),
+                                                     torch.from_numpy(bias))
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(nhwc(out), ref, atol=ATOL, rtol=1e-4)
+    else:
+        np.testing.assert_allclose(nhwc(out), ref, atol=2.0 ** -7 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 64, 64, 320, 320), (2, 32, 32, 1920, 640), (2, 8, 8, 1280, 1280),
+    (1, 512, 512, 128, 128), (2, 16, 16, 1280, 1280), (4, 64, 64, 320, 320),
+    (12, 8, 8, 1280, 1280), (2, 9, 7, 64, 40), (1, 1, 1, 32, 8), (3, 33, 17, 96, 136)])
+def test_conv_splits_stay_in_range(b, h, w, cin, cout):
+    """The conv kernel's plan: the pixel and Cout tiles cover the output
+    exactly once, with Cout tiles of 160 where they divide Cout, else 128;
+    the input channels are split only when the tiles do not fill the 132
+    SMs, never into more parts than 64-channel slices or 16; and a split
+    plan takes no more waves per unit of work than no split."""
+    tiles_h, tiles_w, block_n, cout_tiles, splits = fused_conv.conv_plan(b, h, w, cin, cout)
+    assert (tiles_h - 1) * fused_conv.TILE_H < h <= tiles_h * fused_conv.TILE_H
+    assert (tiles_w - 1) * fused_conv.TILE_W < w <= tiles_w * fused_conv.TILE_W
+    assert block_n == (160 if cout % 160 == 0 else 128)
+    assert (cout_tiles - 1) * block_n < cout <= cout_tiles * block_n
+    tiles = b * tiles_h * tiles_w * cout_tiles
+    assert 1 <= splits <= min(16, -(-cin // 64))
     if tiles >= 132:
         assert splits == 1
-    else:
-        assert tiles * splits >= 132 or splits == cap
+    assert -(-tiles * splits // 132) / splits <= -(-tiles // 132)
+
+
+@pytest.mark.parametrize("b,hw,c,itemsize", [
+    (1, 512 * 512, 128, 2), (2, 64 * 64, 320, 2), (2, 8 * 8, 1280, 2), (4, 64 * 64, 320, 4),
+    (2, 13 * 11, 320, 4), (1, 1, 32, 2)])
+def test_gn_chunks_stay_in_range(b, hw, c, itemsize):
+    """The statistics kernel's split of each image over blocks: at least one
+    pixel and, unless the image is one chunk, 8 KB per block; about two
+    blocks per SM over the batch, at most."""
+    chunks = fused_conv.gn_chunks(b, hw, c, itemsize)
+    assert 1 <= chunks <= hw
+    assert chunks == 1 or hw * c * itemsize // chunks >= 8192
+    assert b * chunks < 2 * 132 + b
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -285,6 +371,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     w = torch.zeros((8, 32, 3, 3), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.fused_gn_silu_conv3x3(x, s, s, w, torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.gn_scale_shift_cuda(x, torch.ones(32), torch.zeros(32), 8, 1e-5)
 
 
 def test_kernel_alignment_check():
@@ -327,12 +415,20 @@ def test_flash_kernel_matches_plain_on_card(cuda, n, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,cin,h,w,cout", [(2, 64, 9, 7, 40), (1, 320, 16, 16, 640), (2, 128, 40, 24, 256)])
-def test_fused_conv_kernel_matches_plain_on_card(cuda, b, cin, h, w, cout):
-    """Includes a large GN shift: a padded tap must load 0, not silu(t)."""
+@pytest.mark.parametrize("b,cin,h,w,cout,dtype", [
+    (2, 64, 9, 7, 40, torch.bfloat16), (1, 320, 16, 16, 640, torch.bfloat16),
+    (2, 128, 40, 24, 256, torch.bfloat16), (2, 64, 9, 7, 40, torch.float32),
+    (2, 320, 24, 20, 320, torch.float32)])
+def test_fused_conv_kernel_matches_plain_on_card(cuda, b, cin, h, w, cout, dtype):
+    """The op on the card (statistics kernel, conv kernel on x in its own
+    type) against the plain op. Includes a large GN shift: a padded tap must
+    load 0, not silu(t); and fp32 x with channel means of +40, which the
+    conv must normalise from its fp32 values."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((b, cin, h, w), generator=gen, device=cuda).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
+    x = torch.randn((b, cin, h, w), generator=gen, device=cuda)
+    if dtype == torch.float32:
+        x = x + 40.0
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
     gamma = torch.randn((cin,), generator=gen, device=cuda)
     beta = 3.0 + torch.randn((cin,), generator=gen, device=cuda)
     wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=cuda) / math.sqrt(9 * cin))
@@ -344,6 +440,46 @@ def test_fused_conv_kernel_matches_plain_on_card(cuda, b, cin, h, w, cout):
                                                 torch.bfloat16)
     # bf16 outputs |y| < 16 plus 1-ulp activation roundings
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-1, rtol=0)
+
+
+def _gn_tolerance(x, num_groups):
+    """Relative tolerance of the statistics kernel's s against the plain
+    statistics, per channel, and |mean| per channel: fp32 sums in another
+    order, 1e-4 relative; for bf16 x the single-pass variance E[x^2] -
+    E[x]^2 loses mean^2 / var of it to cancellation, 2e-6 of that ratio at
+    these sizes. t = beta - mean * s is held to rtol * |mean * s| + 1e-5."""
+    b, c = x.shape[:2]
+    xf = x.float().permute(0, 2, 3, 1).reshape(b, -1, num_groups, c // num_groups)
+    mean, var = xf.mean(dim=(1, 3)), xf.var(dim=(1, 3))
+    ratio = (mean.square() / var).repeat_interleave(c // num_groups, dim=1)
+    mean_c = mean.repeat_interleave(c // num_groups, dim=1)
+    rtol = 1e-4 + (2e-6 * ratio if x.dtype == torch.bfloat16 else 0.0)
+    return rtol, mean_c.abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,h,w,mean,eps,dtype", [
+    (2, 320, 13, 11, 0.0, 1e-5, torch.bfloat16), (2, 320, 13, 11, 40.0, 1e-6, torch.bfloat16),
+    (2, 320, 13, 11, 40.0, 1e-6, torch.float32), (1, 128, 100, 90, 0.0, 1e-6, torch.float32),
+    (2, 1280, 8, 8, 1.0, 1e-5, torch.bfloat16), (1, 2560, 7, 5, 40.0, 1e-5, torch.float32)])
+def test_gn_scale_shift_kernel_matches_plain_on_card(cuda, b, c, h, w, mean, eps, dtype):
+    """The statistics kernel against its plain version: bf16 and fp32 x,
+    channel means of 0 and +40 (where bf16's single-pass variance cancels),
+    eps 1e-6 and 1e-5, H*W a multiple of no tile. Twice, to show the sums
+    are deterministic."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (mean + torch.randn((b, c, h, w), generator=gen, device=cuda)
+         + 0.5 * torch.randn((1, c, 1, 1), generator=gen, device=cuda))
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    beta = 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    s, t = fused_conv.gn_scale_shift_cuda(x, gamma, beta, 32, eps)
+    s2, t2 = fused_conv.gn_scale_shift_cuda(x, gamma, beta, 32, eps)
+    assert torch.equal(s, s2) and torch.equal(t, t2)
+    rs, rt = fused_conv.gn_scale_shift_reference(x, gamma, beta, 32, eps)
+    rtol, mean_abs = _gn_tolerance(x, 32)
+    assert ((s - rs).abs() <= rtol * rs.abs()).all()
+    assert ((t - rt).abs() <= rtol * mean_abs * rs.abs() + 1e-5).all()
 
 
 @pytest.mark.gpu
@@ -448,5 +584,8 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
     w = w.contiguous(memory_format=torch.channels_last)
     with pytest.raises(RuntimeError, match="autograd"):
         fused_conv.fused_gn_silu_conv3x3(x, s, s, w, torch.zeros(8, device=cuda))
+    with pytest.raises(RuntimeError, match="autograd"):
+        fused_conv.gn_scale_shift_cuda(x, torch.ones(32, device=cuda),
+                                       torch.zeros(32, device=cuda), 8, 1e-5)
     with torch.no_grad():
         flash.flash_attention_cuda(q, q, q, 0.1)
