@@ -1,5 +1,6 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the bf16 mma.sync m16n8k16 product, fragment packing and the tile loader.
+// Helpers of the flash-attention kernels: the bf16 mma.sync m16n8k16
+// product, fragment packing and the tile loader of flash_bwd.cu, and the
+// fp32 -> bf16 pair packing that flash_fwd.cu also uses.
 //
 // Fragment layout of mma.sync m16n8k16 for a thread with g = lane / 4 and
 // tg = lane % 4:

@@ -4,186 +4,486 @@
 // _flash_forward, exposed as flash_attention). Computes, per batch*head,
 //     o   = softmax(q k^T * scale) v
 //     lse = rowwise logsumexp(q k^T * scale)
-// without writing the (N, N) logits: each block owns one 64-row query tile
-// and streams 64-row K/V tiles through shared memory, carrying the online
-// softmax state (row max m, row sum l) and an fp32 accumulator in registers.
+// without writing the (N, N) logits.
 //
-// Bound on the H100: at the SD1.5 shapes (N = 4096, D = 40 and N = 1024,
-// D = 80) the work is 4*N*N*D flops per head against 8*N*D bytes, so the
-// tensor cores bound it, not memory. This first version uses mma.sync
-// m16n8k16 (bf16 -> fp32) from plain shared-memory tiles, one buffer, no
-// TMA and no wgmma; the numbers it reaches are in PERF.md.
+// Bound on the H100: per logit 4*D tensor-core flops and one exponential.
+// The SFU gives 16 exponentials a clock per SM against 2048 bf16 MACs, so
+// at D = 40 the exponentials bound the kernel (0.069 ms at BH 16, N 4096)
+// and at D = 80 the tensor cores do. What the design does about it:
+//   - the softmax is in base 2: one FFMA gives s * (scale * log2 e) - m2,
+//     ex2.approx takes the exponential, and per logit nothing else runs but
+//     the max, the sum and the bf16 pack; the key mask runs by selects on
+//     the first and the last tile only;
+//   - the products run on wgmma and the copies on TMA, so the SFU and FP32
+//     pipes are left to the softmax, and the softmax of one tile runs while
+//     the tensor cores work: within a warpgroup under the previous tile's
+//     P V, across the two warpgroups under the other's products.
 //
-// Numerics follow the Pallas kernel: the scale multiplies the fp32 logits,
-// the row sum uses the fp32 probabilities, and P is rounded to bf16 (v's
-// type) before the P*V product. Head dims that are not a multiple of 16
-// (D = 40) are zero-padded in shared memory to the next multiple of 16, so
-// the padded lanes add nothing to q k^T and produce columns that are never
-// stored. Rows beyond N are not stored; keys beyond N get logit -inf.
+// Design: a block owns 128 query rows (64 when D > 80) and runs one
+// producer warp, which issues every copy (TMA), and two consumer
+// warpgroups of 64 rows (one when D > 80, whose logits, P and O outgrow the
+// 168 registers a thread that ptxas gives a block of more than 256
+// threads).
+//   - Q, K and V are read by TMA as 3-D tensors (D, N, BH) in 64-column
+//     boxes with 128-byte swizzle: the box's columns past D (D = 40:
+//     40..63) and its rows past N are zero-filled by TMA, which gives
+//     wgmma's canonical K-major layout at any D % 8 == 0. D > 64 takes two
+//     boxes.
+//   - K and V tiles of 128 keys come through an mbarrier ring of 4 stages
+//     (3 when D > 64). Every wait traps after a bounded number of polls
+//     (hopper.cuh), so a lost arrival cannot hang the card.
+//   - S = Q K^T by wgmma m64n128k16 with both operands in shared memory,
+//     over D's own 16-column k-steps (3 at D = 40).
+//   - P, packed to bf16 from the S accumulator, is wgmma's register A
+//     operand (the accumulator layout, packed, is the A fragment layout);
+//     V is the shared-memory B operand, MN-major (the transposed-B form),
+//     so O += P V runs at N = D rounded up to 16 (48 at D = 40) and its
+//     first 40 columns are stored.
+//   - Per tile a warpgroup issues Q K^T of this tile and P V of the last
+//     one together, runs this tile's softmax once Q K^T is done (P V still
+//     running), and the two warpgroups take turns to issue (named barriers
+//     1 and 2), so one's softmax runs under the other's products.
+//
+// Numerics follow the Pallas kernel: fp32 logits and fp32 row sums, P
+// rounded to bf16 (v's type) before the P*V product, the fp32 accumulator
+// divided by l at the end. lse is written in natural-log units,
+// (m2 + log2 l) * ln 2, as the backward kernels read it. Rows beyond N are
+// not stored; keys beyond N get logit -inf. Times are in PERF.md.
 //
 // Plain C interface (loaded with ctypes): q, k, v, o are (BH, N, D) bf16,
-// contiguous; lse is (BH, N) fp32. Returns the cudaError_t of the launch.
+// contiguous, 16-byte aligned; lse is (BH, N) fp32; 8 <= D <= 128,
+// D % 8 == 0. Returns the cudaError_t of the launch.
 
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::c_to_a;
-using flash::load_a;
-using flash::load_b_cols;
-using flash::load_b_rows;
-using flash::mma_bf16_16816;
+using namespace hopper;
 
-constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16 rows
-constexpr int kBlockK = 64;   // keys per K/V tile
-constexpr int kThreads = 128;
+constexpr int kBlockK = 128;                 // keys per K/V tile (TMA box rows)
+constexpr int kBox = 64;                     // columns per TMA box (128-byte rows)
+constexpr int kBoxBytes = kBlockK * kBox * 2;  // one K or V box, 16 KB
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
+// The block's shape and its shared memory, from a 1024-byte aligned base:
+// Q's boxes, the K/V ring (per stage, K's boxes then V's), the mbarriers.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int n, int d, float scale) {
-  constexpr int LD = DP + 8;     // padded row stride of the shared tiles
-  constexpr int KS = DP / 16;    // k-steps of q k^T
-  constexpr int NT = DP / 8;     // n-tiles of the output accumulator
-  constexpr int ST = kBlockK / 8;  // n-tiles of the logits
+struct Layout {
+  // Consumer warpgroups of 64 query rows: two up to D = 80, where the 168
+  // registers a thread that ptxas gives a block of more than 256 threads
+  // hold a warpgroup's logits, P and O; one above, where they need more.
+  static constexpr int kWG = DP <= 80 ? 2 : 1;
+  static constexpr int kBlockQ = 64 * kWG;
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;  // and the producer warp
+  static constexpr int kBoxes = DP > 64 ? 2 : 1;
+  static constexpr int kStages = kBoxes == 1 ? 4 : 3;
+  static constexpr int kQBoxBytes = kBlockQ * kBox * 2;
+  static constexpr int kKV = kBoxes * kQBoxBytes;
+  static constexpr int kStageBytes = 2 * kBoxes * kBoxBytes;
+  static constexpr int kBar = kKV + kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * LD;
-  __nv_bfloat16* vs = ks + kBlockK * LD;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = (size_t)bh * n * d;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // mma group: rows g and g + 8
-  const int tg = lane & 3;   // thread in group: column pair 2*tg
-  const int r0 = warp * 16;
+// Shared-memory descriptor of an MN-major bf16 operand in 128-byte swizzle:
+// 64-column boxes of 128-byte rows, one row per k, 8-row groups 1024 bytes
+// apart (SBO) and boxes `box_bytes` apart (LBO), at a 1024-byte aligned
+// address.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t box_bytes) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(box_bytes >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
 
-  flash::load_tile<DP, kBlockQ, kThreads>(qs, q + base, q0, n, d);
-  __syncthreads();
+// wgmma's fp32 accumulator operands, eight at a time: C is the constraint
+// ("+f" to accumulate, "=f" to overwrite).
+#define FLASH_OPS8(C, b)                                                                 \
+  C(d[b]), C(d[b + 1]), C(d[b + 2]), C(d[b + 3]), C(d[b + 4]), C(d[b + 5]), C(d[b + 6]), \
+      C(d[b + 7])
+#define FLASH_ACC8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define FLASH_ACC16 FLASH_ACC8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define FLASH_ACC24 FLASH_ACC16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define FLASH_ACC32 FLASH_ACC24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define FLASH_ACC40 FLASH_ACC32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define FLASH_ACC48 FLASH_ACC40 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define FLASH_ACC56 FLASH_ACC48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define FLASH_ACC64 FLASH_ACC56 ", %56, %57, %58, %59, %60, %61, %62, %63"
 
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a<DP>(qa[kk], qs, r0, kk, g, tg);
+// S (64 x 128 fp32 accumulator: s[4i + 2j + e] is row 16 * warp + lane / 4
+// + 8j of the warpgroup, column 8i + 2 * (lane % 4) + e) (+)= A (64 x 16,
+// K-major in shared memory) * B (16 x 128, K-major in shared memory),
+// through their descriptors. The first k-step overwrites S (its operands
+// are outputs only, so S is dead before it), the others accumulate.
+#define FLASH_WGMMA_SS(NAME, C, SCALE_D)                                                  \
+  __device__ __forceinline__ void NAME(float (&d)[64], uint64_t desc_a, uint64_t desc_b) { \
+    asm volatile("{\n"                                                                    \
+                 ".reg .pred p;\n"                                                        \
+                 "setp.ne.b32 p, %66, 0;\n"                                               \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                 \
+                 "{" FLASH_ACC64 "}, %64, %65, p, 1, 1, 0, 0;\n"                           \
+                 "}\n"                                                                    \
+                 : FLASH_OPS8(C, 0), FLASH_OPS8(C, 8), FLASH_OPS8(C, 16), FLASH_OPS8(C, 24), \
+                   FLASH_OPS8(C, 32), FLASH_OPS8(C, 40), FLASH_OPS8(C, 48),                \
+                   FLASH_OPS8(C, 56)                                                      \
+                 : "l"(desc_a), "l"(desc_b), "r"(SCALE_D));                               \
+  }
+FLASH_WGMMA_SS(wgmma_ss_first, "=f", 0)
+FLASH_WGMMA_SS(wgmma_ss_acc, "+f", 1)
 
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums
+// O (64 x N fp32, the same accumulator layout) += A (64 x 16 bf16 from
+// registers, each warp's 16 rows as an mma.sync m16n8k16 A fragment) * B
+// (16 x N bf16, MN-major in shared memory: the transposed-B form), for
+// N = 16, 32, ..., 128: one instruction per N, from the macro below.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t* a,
+                                            uint64_t desc_b);
 
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    flash::load_tile<DP, kBlockK, kThreads>(ks, k + base, k0, n, d);
-    flash::load_tile<DP, kBlockK, kThreads>(vs, v + base, k0, n, d);
-    __syncthreads();
+// N: the product's width; ACC: its N / 2 accumulator operands; A0..A3, DS,
+// SC: the operand numbers of the A fragment, the B descriptor and the
+// scale-d flag that follow them; then the accumulator constraints.
+#define FLASH_WGMMA_RS_TB(N, ACC, A0, A1, A2, A3, DS, SC, ...)                          \
+  template <>                                                                           \
+  __device__ __forceinline__ void wgmma_rs_tb<N>(float (&d)[N / 2], const uint32_t* a,  \
+                                                 uint64_t desc_b) {                     \
+    asm volatile("{\n"                                                                  \
+                 ".reg .pred p;\n"                                                      \
+                 "setp.ne.b32 p, %" #SC ", 0;\n"                                        \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "           \
+                 "{" ACC "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DS          \
+                 ", p, 1, 1, 1;\n"                                                      \
+                 "}\n"                                                                  \
+                 : __VA_ARGS__                                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));    \
+  }
+#define FLASH_ACC_OPS(b) FLASH_OPS8("+f", b)
 
-    float s[ST][4];
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t b[2];
-        load_b_rows<DP>(b, ks, j, kk, g, tg);
-        mma_bf16_16816(s[j], qa[kk], b);
-      }
-    }
+FLASH_WGMMA_RS_TB(16, FLASH_ACC8, 8, 9, 10, 11, 12, 13, FLASH_ACC_OPS(0))
+FLASH_WGMMA_RS_TB(32, FLASH_ACC16, 16, 17, 18, 19, 20, 21, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8))
+FLASH_WGMMA_RS_TB(48, FLASH_ACC24, 24, 25, 26, 27, 28, 29, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
+                  FLASH_ACC_OPS(16))
+FLASH_WGMMA_RS_TB(64, FLASH_ACC32, 32, 33, 34, 35, 36, 37, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
+                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24))
+FLASH_WGMMA_RS_TB(80, FLASH_ACC40, 40, 41, 42, 43, 44, 45, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
+                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32))
+FLASH_WGMMA_RS_TB(96, FLASH_ACC48, 48, 49, 50, 51, 52, 53, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
+                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32), FLASH_ACC_OPS(40))
+FLASH_WGMMA_RS_TB(112, FLASH_ACC56, 56, 57, 58, 59, 60, 61, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
+                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32), FLASH_ACC_OPS(40),
+                  FLASH_ACC_OPS(48))
+FLASH_WGMMA_RS_TB(128, FLASH_ACC64, 64, 65, 66, 67, 68, 69, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
+                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32), FLASH_ACC_OPS(40),
+                  FLASH_ACC_OPS(48), FLASH_ACC_OPS(56))
 
-    float mx[2] = {m[0], m[1]};
+// s = Q K^T over KS k-steps of 16 columns: k-step kk reads box kk / 4
+// (Q's boxes QBOX bytes apart, K's kBoxBytes) at 32-byte column offset
+// kk % 4 (the descriptors count 16-byte units).
+template <int KS, int QBOX>
+__device__ __forceinline__ void qk(float (&s)[64], uint64_t desc_q, uint64_t desc_k) {
+  wgmma_ss_first(s, desc_q, desc_k);
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tg * 2 + (e & 1);
-        const float val = key < n ? s[j][e] * scale : -INFINITY;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = expf(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
-      m[r] = mx[r];
-    }
+  for (int kk = 1; kk < KS; ++kk) {
+    wgmma_ss_acc(s, desc_q + (kk / 4) * (QBOX >> 4) + (kk % 4) * 2,
+                 desc_k + (kk / 4) * (kBoxBytes >> 4) + (kk % 4) * 2);
+  }
+}
 
-    float rs[2] = {0.f, 0.f};
+// acc += P V over the tile's 8 k-steps of 16 keys (V's rows kk*16..,
+// 2048 bytes apart).
+template <int DP>
+__device__ __forceinline__ void pv(float (&acc)[DP / 2], const uint32_t (&p)[32],
+                                   uint64_t desc_v) {
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    wgmma_rs_tb<DP>(acc, p + 4 * kk, desc_v + kk * (2048 >> 4));
+  }
+}
 
-    // P (16 x 64, bf16) * V (64 x DP): the logits' accumulator layout is
-    // the A-fragment layout, so P never leaves registers.
+// The online softmax of one tile's logits s, in place: s becomes the fp32
+// probabilities exp2(s * c - m2) against the new running max m2 (base-2
+// exponent units), l the rescaled running row sum, alpha the factor that
+// rescales the accumulator. With kMask, keys >= `valid` get -inf, by
+// selects (no branch near the products). Each row's max and sum run as
+// four independent chains.
+template <bool kMask>
+__device__ __forceinline__ void softmax(float (&s)[64], float (&m2)[2], float (&l)[2],
+                                        float (&alpha)[2], float c, int valid, int tg) {
+  if constexpr (kMask) {
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s, kk);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t b[2];
-        load_b_cols<DP>(b, vs, j, kk, g, tg);
-        mma_bf16_16816(acc[j], pa, b);
-      }
+    for (int i = 0; i < 64; ++i) {
+      s[i] = (i / 4) * 8 + tg * 2 + (i & 1) < valid ? s[i] : -INFINITY;
     }
   }
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx[r][j] = fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+#pragma unroll
+    for (int i = 4; i < 16; ++i) {
+      mx[r][i & 3] = fmaxf(mx[r][i & 3], fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+    }
+  }
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float mnew = fmaxf(m2[r], m * c);
+    alpha[r] = ex2(m2[r] - mnew);  // 0 on the first tile (m2 = -inf)
+    m2[r] = mnew;
+    neg[r] = -mnew;
+  }
+  float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], c, neg[r]));
+    rs[r][(i >> 2) & 3] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+  }
+}
+
+__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = flash::pack_f32(s[2 * i], s[2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// With two warpgroups, named barriers 1 and 2 order their product issues:
+// warpgroup wg waits at 1 + wg for its turn and ends it by arriving at the
+// other's, so their products alternate on the tensor cores and one's
+// softmax runs under the other's products. A turn ends once the
+// warpgroup's Q K^T is done, and the barrier numbers and counts are
+// selected, not branched on: an arrival right after the issue, or a
+// barrier on a divergent path, made ptxas serialise the wgmma.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+template <int WG>
+__device__ __forceinline__ void turn_begin(int wg) {
+  if constexpr (WG == 2) bar_sync(1 + wg, 256);
+}
+template <int WG>
+__device__ __forceinline__ void turn_end(int wg) {
+  if constexpr (WG == 2) bar_arrive(2 - wg, 256);
+}
+
+// DP: the head dim rounded up to 16, the k extent of Q K^T and the width
+// of P V.
+template <int DP>
+__global__ void __launch_bounds__(Layout<DP>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int n, int d, float c) {
+  using L = Layout<DP>;
+  constexpr int S = L::kStages;
+  constexpr int KS = DP / 16;  // k-steps of Q K^T
+  constexpr int WG = L::kWG;
+  constexpr int kConsumers = L::kConsumers;
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;
+  unsigned char* kv = smem + L::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * L::kBlockQ;
+  const int ntiles = (n + kBlockK - 1) / kBlockK;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // Producer warp: one thread loads Q once, then tile t's K and V into
+    // stage t % S once every consumer thread has released what the stage
+    // held before.
+    if (lane != 0) return;
+    mbar_expect_tx(q_full, L::kBoxes * L::kQBoxBytes);
+    for (int b = 0; b < L::kBoxes; ++b) {
+      tma_load_3d(qs + b * L::kQBoxBytes, &tm_q, q_full, b * kBox, q0, bh);
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int stage = t % S;
+      unsigned char* st = kv + stage * L::kStageBytes;
+      mbar_wait(&empty[stage], ((t / S) & 1) ^ 1);
+      mbar_expect_tx(&full[stage], L::kStageBytes);
+      for (int b = 0; b < L::kBoxes; ++b) {
+        tma_load_3d(st + b * kBoxBytes, &tm_k, &full[stage], b * kBox, t * kBlockK, bh);
+        tma_load_3d(st + (L::kBoxes + b) * kBoxBytes, &tm_v, &full[stage], b * kBox,
+                    t * kBlockK, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows 64wg..64wg+63 of the tile; this
+  // thread rows g and g + 8 of its warp's 16.
+  const int wg = warp / 4;
+  const int tg = lane & 3;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + (lane >> 2);
+
+  float s[64];          // logits, then probabilities, of one 128-key tile
+  float acc[DP / 2];    // O, unnormalised
+  uint32_t p[32];       // P in bf16: 8 k-steps of A fragments
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m2[2] = {-INFINITY, -INFINITY};  // running row max, base-2 exponent units
+  float l[2] = {0.f, 0.f};               // per-thread partial row sums
+  float alpha[2];
+  const uint64_t dq = desc_sw128(qs + wg * 64 * 128);
+  auto desc_k = [&](int t) { return desc_sw128(kv + (t % S) * L::kStageBytes); };
+  auto desc_v = [&](int t) {
+    return desc_sw128_mn(kv + (t % S) * L::kStageBytes + L::kBoxes * kBoxBytes, kBoxBytes);
+  };
+
+  // Turns: each warpgroup takes one per product issue, ntiles + 1 in all;
+  // the second warpgroup's first arrival lets the first warpgroup start,
+  // and the first warpgroup's last wait takes the second's last arrival
+  // (the other warpgroup meets a barrier of its own, 3 or 4, alone).
+  mbar_wait(q_full, 0);
+  if constexpr (WG == 2) bar_arrive(wg == 1 ? 1 : 3, wg == 1 ? 256 : 128);
+  mbar_wait(&full[0], 0);
+  turn_begin<WG>(wg);
+  wgmma_fence();
+  qk<KS, L::kQBoxBytes>(s, dq, desc_k(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  turn_end<WG>(wg);
+  fence_acc(s);
+  softmax<true>(s, m2, l, alpha, c, n, tg);
+  pack_p(p, s);
+
+  // Tile t >= 1; the last one masked (its keys past N).
+  auto step = [&](int t, auto masked) {
+    mbar_wait(&full[t % S], (t / S) & 1);
+    rescale(acc, alpha);
+    turn_begin<WG>(wg);
+    wgmma_fence();
+    // Q K^T of tile t and P V of tile t - 1 together; the softmax of tile
+    // t runs while P V still does.
+    qk<KS, L::kQBoxBytes>(s, dq, desc_k(t));
+    wgmma_commit();
+    pv<DP>(acc, p, desc_v(t - 1));
+    wgmma_commit();
+    wgmma_wait<1>();
+    turn_end<WG>(wg);
+    fence_acc(s);
+    softmax<decltype(masked)::value>(s, m2, l, alpha, c, n - t * kBlockK, tg);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_acc(p);
+    mbar_arrive(&empty[(t - 1) % S]);
+    pack_p(p, s);
+  };
+  for (int t = 1; t + 1 < ntiles; ++t) step(t, std::false_type());
+  if (ntiles > 1) step(ntiles - 1, std::true_type());
+
+  rescale(acc, alpha);
+  turn_begin<WG>(wg);
+  wgmma_fence();
+  pv<DP>(acc, p, desc_v(ntiles - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  turn_end<WG>(wg);
+  fence_acc(acc);
+  if constexpr (WG == 2) bar_sync(wg == 0 ? 1 : 4, wg == 0 ? 256 : 128);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  const size_t base = (size_t)bh * n;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + r * 8;
+    const int row = row0 + 8 * r;
     if (row >= n) continue;
     const float inv = 1.f / l[r];
+    __nv_bfloat16* orow = o + (base + row) * d;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = j * 8 + tg * 2;
+    for (int i = 0; i < DP / 8; ++i) {
+      const int col = i * 8 + tg * 2;
       if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row * d + col) =
-            __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
       }
     }
-    if (tg == 0) lse[(size_t)bh * n + row] = m[r] + logf(l[r]);
+    if (tg == 0) lse[base + row] = (m2[r] + log2f(l[r])) * kLn2;
   }
 }
 
+// q, k or v as a 3-D tensor (D, N, BH), innermost first; a box is 64
+// columns of 128 rows of one head, 128-byte swizzle, zeros out of bounds.
+CUresult encode_qkv(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int n,
+                    int d, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {kBox, (cuuint32_t)rows, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int bh, int n, int d, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(kBlockQ + 2 * kBlockK) * (DP + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                   int n, int d, float scale, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (encode_qkv(encode, &tm_q, q, bh, n, d, Layout<DP>::kBlockQ) != CUDA_SUCCESS ||
+      encode_qkv(encode, &tm_k, k, bh, n, d, kBlockK) != CUDA_SUCCESS ||
+      encode_qkv(encode, &tm_v, v, bh, n, d, kBlockK) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = Layout<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), n, d, scale);
+  dim3 grid((n + Layout<DP>::kBlockQ - 1) / Layout<DP>::kBlockQ, bh);
+  flash_fwd_kernel<DP><<<grid, Layout<DP>::kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), n, d,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 

@@ -398,7 +398,8 @@ def test_attention_dispatch_rule_on_card(cuda, nq, nk, d, impl):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d", [(1024, 40), (1024, 80), (1000, 64)])
+@pytest.mark.parametrize("n,d", [(1024, 40), (1024, 80), (1000, 64), (4096, 40), (1000, 40),
+                                 (1024, 128), (1024, 8)])
 def test_flash_kernel_matches_plain_on_card(cuda, n, d):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((2, 4, n, d), generator=gen, device=cuda).to(torch.bfloat16)
