@@ -30,8 +30,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
   6. gradient check: one micro-batch's loss and trainable gradients at B=1
      through the kernels and through the ops' plain versions, the relative
      L2 difference of each trainable group and of each leaf under stated
-     tolerances; then a planted fault (dq set to 0), which the same check
-     must reject.
+     tolerances; then two planted faults (dq set to 0, dv set to 0), each
+     of which the same check must reject;
+  7. fp32 training: one step of the same entry point with
+     ``--mixed_precision no`` (micro-batch 1): an fp32 model runs its long
+     attentions through the flash kernels on q, k, v and dO rounded to
+     bf16 (the launches of a bf16 step) and its convs through the plain
+     version (no GN statistics or conv launch); the loss is finite.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -43,6 +48,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -118,19 +124,22 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS, exps: f
     return times[by] * 1e3, by
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2, queue_ahead: bool = True) -> float:
+def time_ms(fn, iters: int = 10, warmup: int = 2, queue_ahead: bool = True,
+            sleep_cycles: int = 10_000_000) -> float:
     """Milliseconds per call from CUDA events around `iters` back-to-back
     calls. With queue_ahead the calls are queued behind a sleep kernel of
-    about 5 ms, so the events time the card alone; without it, a call whose
-    host work (Python wrappers, launches) outlasts its device work is timed
-    at the host's rate, as a caller issuing the calls back to back sees it."""
+    `sleep_cycles` clocks (about 5 ms by default), so the events time the
+    card alone as long as the host queues every call within the sleep;
+    without it, a call whose host work (Python wrappers, launches) outlasts
+    its device work is timed at the host's rate, as a caller issuing the
+    calls back to back sees it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if queue_ahead:
-        torch.cuda._sleep(10_000_000)
+        torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -166,6 +175,9 @@ FLASH_CHECK_SHAPES = [(2, 1000, 40), (2, 1024, 128), (2, 1024, 8)]
 # Backward: the UNet's up blocks and the two LoRA trunks (the static trunk
 # is frozen).
 FLASH_BWD_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8) for n, d in ((4096, 40), (1024, 80))]
+# Checked, not timed: a ragged last tile, and the widest and narrowest head
+# dims.
+FLASH_BWD_CHECK_SHAPES = [(2, 1000, 64), (2, 1024, 128), (2, 1024, 8)]
 CONV_SHAPES = [  # (B, Cin, H, W, Cout, x dtype)
     (2, 320, 64, 64, 320, torch.bfloat16),
     (2, 1920, 32, 32, 640, torch.bfloat16),
@@ -347,50 +359,85 @@ def gn_phase(dev, gen):
             "edgestyle_tpu/ops/fused_conv.py:50", shapes)
 
 
+def flash_bwd_bound_ms(bh: int, n: int, d: int, products: int):
+    """A flash backward kernel's bound: q, k, v, dO, lse and D read once and
+    its `products` N x N x D products' outputs ((B, H, N, D) bf16 each: dq,
+    or dk and dv) written once; 2*N*N*D tensor-core flops a product and N*N
+    exponentials per head (P is recomputed)."""
+    outs = 1 if products == 3 else 2
+    nbytes = 4 * bh * n * d * 2 + 2 * bh * n * 4 + outs * bh * n * d * 2
+    return bound_ms(2.0 * products * bh * n * n * d, nbytes, exps=float(bh) * n * n)
+
+
+def flash_bwd_inputs(gen, dev, bh: int, n: int, d: int):
+    """(q, k, v, dO, lse, D, scale) at (1, BH, N, D) bf16, lse and D from the
+    forward kernel's own output."""
+    from edgestyle_tpu_torch.ops import flash
+
+    q, k, v, do = (torch.randn((1, bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash.flash_attention_cuda(q, k, v, scale)
+    return q, k, v, do, lse, flash.flash_bwd_delta(out, do), scale
+
+
+def flash_bwd_errors(args, dq_fn=None, dkv_fn=None):
+    """The backward kernels (or dq_fn / dkv_fn, functions of the same
+    arguments) against their plain versions: {name: (max-abs error,
+    tolerance BWD_REL_TOL * max |plain|, max |plain|)} for dq, dk and dv;
+    a name whose function is False is left out."""
+    from edgestyle_tpu_torch.ops import flash
+
+    got, ref = {}, {}
+    if dq_fn is not False:
+        got["dq"] = (dq_fn or flash.flash_bwd_dq_cuda)(*args)
+    if dkv_fn is not False:
+        got["dk"], got["dv"] = (dkv_fn or flash.flash_bwd_dkv_cuda)(*args)
+    torch.cuda.synchronize()
+    if "dq" in got:
+        ref["dq"] = flash.flash_bwd_dq_reference(*args)
+    if "dk" in got:
+        ref["dk"], ref["dv"] = flash.flash_bwd_dkv_reference(*args)
+    errs = {}
+    for name, r in ref.items():
+        rmax = r.float().abs().max().item()
+        errs[name] = ((got[name].float() - r.float()).abs().max().item(), BWD_REL_TOL * rmax,
+                      rmax)
+    return errs
+
+
 def flash_bwd_phase(dev, gen):
     """Both backward kernels against their plain versions on the forward's
-    own output and lse, at the training step's shapes. The library yardstick
-    is the backward of F.scaled_dot_product_attention (dq, dk and dv
-    together), for each of the two."""
+    own output and lse, at the training step's shapes (timed) and at
+    FLASH_BWD_CHECK_SHAPES (checked only). The library yardstick is the
+    backward of F.scaled_dot_product_attention (dq, dk and dv together),
+    for each of the two."""
     from edgestyle_tpu_torch.ops import flash
 
     dq_shapes, dkv_shapes = [], []
-    for bh, n, d in FLASH_BWD_SHAPES:
-        q, k, v, do = (torch.randn((1, bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
-                       for _ in range(4))
-        scale = 1.0 / math.sqrt(d)
-        out, lse = flash.flash_attention_cuda(q, k, v, scale)
-        delta = flash.flash_bwd_delta(out, do)
-        args = (q, k, v, do, lse, delta, scale)
-        dq = flash.flash_bwd_dq_cuda(*args)
-        dk, dv = flash.flash_bwd_dkv_cuda(*args)
-        torch.cuda.synchronize()
-        ref_dq = flash.flash_bwd_dq_reference(*args)
-        ref_dk, ref_dv = flash.flash_bwd_dkv_reference(*args)
-        errs = {}
-        for name, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
-            rmax = r.float().abs().max().item()
-            errs[name] = ((a.float() - r.float()).abs().max().item(), BWD_REL_TOL * rmax, rmax)
+    for bh, n, d in FLASH_BWD_SHAPES + FLASH_BWD_CHECK_SHAPES:
+        args = flash_bwd_inputs(gen, dev, bh, n, d)
+        errs = flash_bwd_errors(args)
+        err_txt = ", ".join(f"{k} max_abs_err={e:.3e} (tol {t:.3e}; max |ref| {m:.3e})"
+                            for k, (e, t, m) in errs.items())
+        if not all(e <= t for e, t, _ in errs.values()):
+            print(f"flash_bwd BH={bh} N={n} D={d}: {err_txt}", flush=True)
+            fail(f"the flash backward kernels disagree with their plain versions at "
+                 f"{(bh, n, d)}")
+        if (bh, n, d) in FLASH_BWD_CHECK_SHAPES:
+            print(f"flash_bwd BH={bh} N={n} D={d}: {err_txt} (checked, not timed)", flush=True)
+            continue
         ms_dq = time_ms(lambda: flash.flash_bwd_dq_cuda(*args))
         ms_dkv = time_ms(lambda: flash.flash_bwd_dkv_cuda(*args))
         plain_dq = time_ms(lambda: flash.flash_bwd_dq_reference(*args), iters=3, warmup=1)
         plain_dkv = time_ms(lambda: flash.flash_bwd_dkv_reference(*args), iters=3, warmup=1)
-        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
-        lib_ms = time_ms(lambda: lib_out.backward(do, retain_graph=True))
-        del lib_out, ql, kl, vl
-        reads = 4 * bh * n * d * 2 + 2 * bh * n * 4
-        b_dq = bound_ms(6.0 * bh * n * n * d, reads + bh * n * d * 2)
-        b_dkv = bound_ms(8.0 * bh * n * n * d, reads + 2 * bh * n * d * 2)
-        err_txt = ", ".join(f"{k} max_abs_err={e:.3e} (tol {t:.3e}; max |ref| {m:.3e})"
-                            for k, (e, t, m) in errs.items())
+        lib_ms = sdpa_backward_ms(*args[:4])
+        b_dq = flash_bwd_bound_ms(bh, n, d, 3)
+        b_dkv = flash_bwd_bound_ms(bh, n, d, 4)
         print(f"flash_bwd BH={bh} N={n} D={d}: {err_txt}; dq ms={ms_dq:.4f} "
               f"plain_ms={plain_dq:.4f} bound_ms={b_dq[0]:.4f} ({b_dq[1]}); dkv ms={ms_dkv:.4f} "
               f"plain_ms={plain_dkv:.4f} bound_ms={b_dkv[0]:.4f} ({b_dkv[1]}); "
               f"sdpa_backward_ms={lib_ms:.4f}", flush=True)
-        if not all(e <= t for e, t, _ in errs.values()):
-            fail(f"the flash backward kernels disagree with their plain versions at "
-                 f"{(bh, n, d)}")
         dq_shapes.append(dict(shape=[bh, n, d], max_abs_err=errs["dq"][0], ms=ms_dq,
                               plain_ms=plain_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
                               library_ms=lib_ms))
@@ -401,6 +448,23 @@ def flash_bwd_phase(dev, gen):
              "edgestyle_tpu/ops/flash.py:141", dq_shapes),
             ("flash_bwd_dkv", "edgestyle_tpu_torch/kernels/flash_bwd.cu",
              "edgestyle_tpu/ops/flash.py:175", dkv_shapes)]
+
+
+def sdpa_backward_ms(q, k, v, do, readings: int = 5) -> float:
+    """One backward of F.scaled_dot_product_attention (dq, dk and dv
+    together) on the same inputs, the library yardstick of both backward
+    kernels: the median of `readings` timings. torch.autograd.grad returns
+    the gradients without adding them into .grad, and each timing's calls
+    queue behind a sleep of about 50 ms, which outlasts the host's autograd
+    work for all of them."""
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl)
+
+    def backward():
+        torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+
+    return statistics.median(time_ms(backward, sleep_cycles=100_000_000)
+                             for _ in range(readings))
 
 
 def bf16_order(a: torch.Tensor) -> torch.Tensor:
@@ -711,6 +775,54 @@ def training_phase(dev):
     return launches, (pipe, frozen0, tcfg, state0)
 
 
+def fp32_training_phase(dev) -> None:
+    """One step of the trainer's entry point with ``--mixed_precision no``
+    at micro-batch 1: an fp32 model on the card runs its long attentions
+    through the flash kernels (q, k, v and dO rounded to bf16 on the way
+    in), so the step launches the flash kernels as a bf16 step does, and
+    takes the conv's plain version (the conv kernel multiplies bf16 weights
+    only, as the reference sends non-bf16 convs to XLA), so it launches no
+    GN statistics or conv kernel. Its loss must be finite and its weights
+    fp32."""
+    import shutil
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import train
+    from edgestyle_tpu_torch.core.params import flatten
+
+    out_dir = train_out_dir() + "_fp32"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--mixed_precision", "no", "--train_batch_size", "1",
+                         "--max_train_steps", "1", "--output_dir", out_dir]
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    losses = [r["loss"] for r in res["log"]]
+    dtypes = {v.dtype for tree in (res["frozen"], res["state"]["trainable"])
+              for v in flatten(tree).values() if v.is_floating_point()}
+    print(f"fp32 training (--mixed_precision no, 1 step, micro-batch 1, 512 px): losses "
+          f"{losses}; weight dtypes {sorted(map(str, dtypes))}; kernel launches {launches}; "
+          f"main() wall {wall:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
+        fail(f"the fp32 training step's loss is not one finite value: {losses}")
+    if dtypes != {torch.float32}:
+        fail(f"the fp32 model holds weights of other types: {dtypes}")
+    predicted = {k: v if k.startswith("flash") else 0
+                 for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    print(f"  fp32 launches predicted {predicted}", flush=True)
+    if launches != predicted:
+        fail("the fp32 training step's kernel launches differ from the counts the code "
+             "predicts")
+    del res
+
+
 def _live_trainables(state, gen):
     """A copy of the trainables with the zero-init ControlNet heads and LoRA
     ups given small random values, so that every trunk gradient is live."""
@@ -746,8 +858,8 @@ def grad_check_phase(dev, built):
     """One micro-batch (B=1) through the kernels, then through the ops'
     plain versions (swapped in here, as e2e_phase swaps them), same weights
     and draws: the loss and each trainable group's gradients. Then once more
-    through the kernels with a planted fault (dq set to 0), which the check
-    must reject."""
+    through the kernels for each planted fault (dq set to 0, dv set to 0),
+    which the check must reject."""
     from edgestyle_tpu_torch import kernels
     from edgestyle_tpu_torch.apps import train
     from edgestyle_tpu_torch.core.params import flatten, unflatten
@@ -789,18 +901,29 @@ def grad_check_phase(dev, built):
             fail("the plain run of the gradient check launched a kernel")
     finally:
         layers.norm_act_conv3x3, attention.flash_attention = saved
-    dq_kernel = flash.flash_bwd_dq_cuda
-    flash.flash_bwd_dq_cuda = lambda *a: dq_kernel(*a).zero_()
-    try:
-        loss_f, g_f = loss_and_grads()
-    finally:
-        flash.flash_bwd_dq_cuda = dq_kernel
+    # planted faults: a backward kernel's wrapper with one gradient zeroed
+    dq_kernel, dkv_kernel = flash.flash_bwd_dq_cuda, flash.flash_bwd_dkv_cuda
+
+    def dv_zero(*a):
+        dk, dv = dkv_kernel(*a)
+        return dk, dv.zero_()
+
+    faults = {"planted fault dq = 0": ("flash_bwd_dq_cuda", lambda *a: dq_kernel(*a).zero_()),
+              "planted fault dv = 0": ("flash_bwd_dkv_cuda", dv_zero)}
+    g_faults = {}
+    for what, (name, faulty) in faults.items():
+        saved = getattr(flash, name)
+        setattr(flash, name, faulty)
+        try:
+            g_faults[what] = loss_and_grads()[1]
+        finally:
+            setattr(flash, name, saved)
     kernels.reset_launches()
     print(f"gradient check (B=1, one micro-batch, bf16): loss through the kernels "
           f"{loss_k:.6f}, through the plain versions {loss_p:.6f}; kernel launches {launched}",
           flush=True)
     ok = {}
-    for what, g in (("kernels", g_k), ("planted fault dq = 0", g_f)):
+    for what, g in (("kernels", g_k), *g_faults.items()):
         per_group, (key, leaf_rel, leaf_norm) = _grad_diffs(g, g_p, TRAINABLE_GROUPS)
         print(f"  {what} vs plain: relative L2 difference per group (tol {GRAD_TOL}) "
               + ", ".join(f"{grp} {r:.3e} (|g_plain|_2 {n:.3e})"
@@ -810,8 +933,9 @@ def grad_check_phase(dev, built):
         ok[what] = all(r <= GRAD_TOL for r, _ in per_group.values()) and leaf_rel <= LEAF_TOL
     if not ok["kernels"]:
         fail("trainable gradients through the kernels and the plain versions disagree")
-    if ok["planted fault dq = 0"]:
-        fail("the gradient check passed a planted fault (dq = 0)")
+    for what in g_faults:
+        if ok[what]:
+            fail(f"the gradient check passed a {what}")
 
 
 def profile_train_step(dev, built, out_dir: str) -> None:
@@ -942,6 +1066,8 @@ def main() -> int:
     grad_check_phase(dev, built)
     if args.profile:
         profile_train_step(dev, built, args.profile)
+    del built
+    fp32_training_phase(dev)
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)

@@ -8,48 +8,81 @@
 //     dS = P * (dO v^T - D)
 //     dq = dS k * scale                 (flash_bwd_dq)
 //     dk = dS^T q * scale, dv = P^T dO  (flash_bwd_dkv)
-// P is recomputed from (q, k, L); no (N, N) tensor is written.
-//
-// Design. The TPU runs each pass as a sequential grid that carries its sum
-// in VMEM scratch across the inner axis. Here blocks run in parallel in no
-// order, so one 4-warp block owns a 64-row tile of the output -- q rows for
-// dq, k rows for dk/dv -- and loops over the other axis inside the block,
-// 64 rows a step, with the sums in fp32 registers. Each output row is
-// written once by one block: no atomics, and the result is deterministic,
-// as in the two-pass TPU scheme. The dk/dv pass works on the transposed
-// problem (S^T = k q^T, dP^T = v dO^T), so every product has the shape of
-// the forward's: a 16-row A fragment per warp against B tiles in shared
-// memory, and each result's C fragments are the A fragments of the next
-// product (flash_common.cuh). Head dims that are not a multiple of 16
-// (D = 40) are zero-padded to 48 in shared memory, as in the forward.
+// P is recomputed from (q, k, L); no (N, N) tensor is written. The TPU
+// runs each pass as a sequential grid that carries its sum in VMEM scratch
+// across the inner axis. Here blocks run in parallel in no order, so a
+// block owns rows of one output -- q rows for dq, k rows for dk/dv -- and
+// loops over the other axis inside the block with the sums in fp32
+// registers. Each output row is written once by one block: no atomics, and
+// the result is deterministic, as in the two-pass TPU scheme.
 //
 // Numerics follow _flash_backward: fp32 S, P and dP; dS rounded to bf16
 // (k's and q's type) before the dq and dk products. The Pallas kernel keeps
-// P in fp32 for dv (dO was cast to fp32); this kernel rounds P to bf16 for
+// P in fp32 for dv (dO was cast to fp32); these kernels round P to bf16 for
 // the tensor cores, and the card test's tolerance allows for it.
 //
 // Bound on the H100: dq does 3 products (S, dP, dS k), 6*N*N*D flops per
 // head, and dk/dv 4 (S, dP^T, P^T dO, dS^T q), 8*N*N*D, against about
-// 10*N*D bytes; at the SD1.5 shapes (N = 4096, D = 40; N = 1024, D = 80)
-// the tensor cores bound both. This first version uses mma.sync m16n8k16
-// from plain shared-memory tiles, one buffer, no TMA and no wgmma; the
-// numbers it reaches are in PERF.md.
+// 10*N*D bytes, and both take N*N exponentials per head. At the SD1.5
+// shapes (N = 4096, D = 40; N = 1024, D = 80) the tensor cores bound
+// dk/dv; at D = 40 the special-function unit's exponentials bound dq.
+//
+// flash_bwd_dq (the first, plain design; its Hopper redesign is still to
+// come): one 4-warp block per 64-row q tile, mma.sync m16n8k16 from plain
+// shared-memory tiles (D = 40 zero-padded to 48), one buffer, no TMA; each
+// result's C fragments are the A fragments of the next product
+// (flash_common.cuh).
+//
+// flash_bwd_dkv, for Hopper: the forward's problem transposed, on the
+// forward's primitives (flash_common.cuh, hopper.cuh).
+//   - A block owns 128 key rows (64 when D > 48, whose accumulators outgrow
+//     the 168 registers a thread that ptxas gives a block of more than 256
+//     threads) and runs one producer warp and one consumer warpgroup per 64
+//     keys. K and V are read once by TMA and stay in shared memory.
+//   - The producer streams the queries in steps of 64 through an mbarrier
+//     ring (4 stages, 3 when D > 64): per step Q's and dO's (D, N, BH) boxes
+//     of 64 columns in 128-byte swizzle, zero-filled by TMA past D and past
+//     N (so D = 40 needs no padding copy), and the step's 64 values of L and
+//     of D by 1-D TMA. Every wait traps after a bounded number of polls.
+//   - S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands
+//     K-major in shared memory, as the forward's Q K^T.
+//   - P^T = ex2(S^T * (scale * log2 e) - L * log2 e), one FFMA and one ex2
+//     per logit, and dS^T = P^T * (dP^T - D) are computed in the
+//     accumulator registers (L and D read from the stage per accumulator
+//     column); queries past N are masked on the last step only. Both are
+//     packed to bf16 as the register A operand, as the forward packs P.
+//   - dV += P^T dO and dK += dS^T Q take dO and Q as the MN-major
+//     (transposed-B) operand, as the forward takes V, at N = D rounded up
+//     to 16. dK is scaled once at the end.
+//   - Per step a warpgroup issues dV, dK of step t with S^T of step t + 1,
+//     then dP^T of step t + 1, under which it computes P^T of step t + 1;
+//     the two warpgroups' products interleave on the tensor cores. Issuing
+//     all four products of two steps together (S^T, dP^T in flight beside
+//     the packed P^T, dS^T) spilled at D = 40 and ran 20% slower; one step
+//     after the other ran 2-4% slower at D = 40 and 9-10% slower at D = 80,
+//     timed against this schedule in one process (PERF.md).
 //
 // Plain C interface (loaded with ctypes): q, k, v, dout and the outputs are
-// (BH, N, D) bf16, contiguous; lse and delta are (BH, N) fp32. Each entry
-// point returns the cudaError_t of its launch.
+// (BH, N, D) bf16, contiguous, 16-byte aligned; lse and delta are (BH, N)
+// fp32, 16-byte aligned; 8 <= D <= 128, D % 8 == 0. Each entry point
+// returns the cudaError_t of its launch.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::c_to_a;
-using flash::load_a;
-using flash::load_b_cols;
-using flash::load_b_rows;
-using flash::mma_bf16_16816;
+using namespace hopper;
+using namespace flash;
 
 constexpr int kRows = 64;     // rows of a tile: 4 warps x 16
 constexpr int kThreads = 128;
@@ -170,122 +203,250 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-// dk and dv for one 64-row k/v tile: loop over the 64-row q/dO tiles.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n,
-                     int d, float scale) {
-  constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;
-  constexpr int NT = DP / 8;
+// ------------------------------------------------------------------ dk / dv
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kRows * LD;
-  __nv_bfloat16* qs = vs + kRows * LD;
-  __nv_bfloat16* dos = qs + kRows * LD;
-  float* ls = reinterpret_cast<float*>(dos + kRows * LD);
-  float* dls = ls + kRows;
+constexpr int kStepQ = 64;  // queries per step (rows of a Q or dO box)
+
+// The dk/dv block's shape and its shared memory, from a 1024-byte aligned
+// base: K's boxes, V's boxes, the ring (per stage: Q's boxes, dO's boxes,
+// 64 values of L, 64 of D), the mbarriers.
+template <int DP>
+struct DkvLayout {
+  // Consumer warpgroups of 64 key rows: two up to D = 48, where dK, dV, one
+  // step's S^T and dP^T (or P^T and dS^T packed) fit the 168 registers a
+  // thread that ptxas gives a block of more than 256 threads; one above
+  // (186 registers at D = 64, 200 at D = 80).
+  static constexpr int kWG = DP <= 48 ? 2 : 1;
+  static constexpr int kBlockK = 64 * kWG;
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;  // and the producer warp
+  static constexpr int kBoxes = DP > 64 ? 2 : 1;
+  static constexpr int kStages = kBoxes == 1 ? 4 : 3;
+  static constexpr int kKBox = kBlockK * 128;  // one K or V box
+  static constexpr int kQBox = kStepQ * 128;   // one Q or dO box, 8 KB
+  static constexpr int kRowsOff = 2 * kBoxes * kQBox;
+  static constexpr int kTx = kRowsOff + 2 * kStepQ * 4;  // bytes TMA brings a stage
+  static constexpr int kStageBytes = (kTx + 1023) / 1024 * 1024;
+  static constexpr int kKV = 2 * kBoxes * kKBox;
+  static constexpr int kBar = kKV + kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// P^T of one step in place of S^T. In the accumulator layout s[4i + 2j +
+// e] is column (query) 8i + 2 tg + e of the step; `rows` holds the step's L
+// (64 values) then its D. p = ex2(s * c - L * log2 e) with c = scale *
+// log2 e. With kMask, queries >= `valid` get p = 0 (and so ds = 0), by
+// selects.
+template <bool kMask>
+__device__ __forceinline__ void probs(float (&s)[32], const float* rows, float c, int valid,
+                                      int tg) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 l = *reinterpret_cast<const float2*>(rows + 8 * i + 2 * tg);
+    const float nl[2] = {-l.x * kLog2e, -l.y * kLog2e};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = j & 1;
+      const float p = ex2(fmaf(s[4 * i + j], c, nl[e]));
+      s[4 * i + j] = kMask && 8 * i + 2 * tg + e >= valid ? 0.f : p;
+    }
+  }
+}
+
+// dS^T = P^T * (dP^T - D) in place of dP^T, from P^T in p.
+__device__ __forceinline__ void dscores(float (&dp)[32], const float (&p)[32], const float* rows,
+                                        int tg) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 dl = *reinterpret_cast<const float2*>(rows + kStepQ + 8 * i + 2 * tg);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dp[4 * i + j] = p[4 * i + j] * (dp[4 * i + j] - (j & 1 ? dl.y : dl.x));
+  }
+}
+
+// DP: the head dim rounded up to 16, the k extent of S^T and dP^T and the
+// width of dV and dK.
+template <int DP>
+__global__ void __launch_bounds__(DkvLayout<DP>::kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_lse,
+                     const __grid_constant__ CUtensorMap tm_delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int n, int d, float c, float scale) {
+  using L = DkvLayout<DP>;
+  constexpr int S = L::kStages;
+  constexpr int KS = DP / 16;  // k-steps of S^T and dP^T
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + L::kBoxes * L::kKBox;
+  unsigned char* ring = smem + L::kKV;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kRows;
-  const size_t base = (size_t)bh * n * d;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
+  const int k0 = blockIdx.x * L::kBlockK;
+  const int nsteps = (n + kStepQ - 1) / kStepQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], L::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == L::kConsumers / 32) {
+    // Producer warp: one thread loads K and V once, then step t's Q, dO, L
+    // and D into stage t % S once every consumer thread has released what
+    // the stage held before.
+    if (lane != 0) return;
+    mbar_expect_tx(kv_full, L::kKV);
+    for (int b = 0; b < L::kBoxes; ++b) {
+      tma_load_3d(ks + b * L::kKBox, &tm_k, kv_full, b * kBox, k0, bh);
+      tma_load_3d(vs + b * L::kKBox, &tm_v, kv_full, b * kBox, k0, bh);
+    }
+    for (int t = 0; t < nsteps; ++t) {
+      const int stage = t % S;
+      unsigned char* st = ring + stage * L::kStageBytes;
+      mbar_wait(&empty[stage], ((t / S) & 1) ^ 1);
+      mbar_expect_tx(&full[stage], L::kTx);
+      for (int b = 0; b < L::kBoxes; ++b) {
+        tma_load_3d(st + b * L::kQBox, &tm_q, &full[stage], b * kBox, t * kStepQ, bh);
+        tma_load_3d(st + (L::kBoxes + b) * L::kQBox, &tm_do, &full[stage], b * kBox,
+                    t * kStepQ, bh);
+      }
+      // (BH * N) vectors: a ragged last step reads the next head's first
+      // values (or zeros past the end), which the mask drops
+      const int row = bh * n + t * kStepQ;
+      tma_load_1d(st + L::kRowsOff, &tm_lse, &full[stage], row);
+      tma_load_1d(st + L::kRowsOff + kStepQ * 4, &tm_delta, &full[stage], row);
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns key rows 64wg..64wg+63 of the block; this
+  // thread rows g and g + 8 of its warp's 16.
+  const int wg = warp / 4;
   const int tg = lane & 3;
-  const int r0 = warp * 16;
 
-  flash::load_tile<DP, kRows, kThreads>(ks, k + base, k0, n, d);
-  flash::load_tile<DP, kRows, kThreads>(vs, v + base, k0, n, d);
+  float s[32];   // S^T, then P^T, of one step: 64 keys x 64 queries
+  float dp[32];  // dP^T, then dS^T
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+  uint32_t pa[16], dsa[16];  // P^T and dS^T in bf16: 4 k-steps of A fragments
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint64_t desc_k = desc_sw128(ks + wg * 64 * 128);
+  const uint64_t desc_v = desc_sw128(vs + wg * 64 * 128);
+  auto stage_of = [&](int t) { return ring + (t % S) * L::kStageBytes; };
+  auto rows = [&](int t) { return reinterpret_cast<const float*>(stage_of(t) + L::kRowsOff); };
+  // S^T = K Q^T, dP^T = V dO^T, and dV += P^T dO, dK += dS^T Q (dO and Q
+  // MN-major), of step t
+  auto scores = [&](int t) {
+    ss_product<kStepQ, KS, L::kKBox, L::kQBox>(s, desc_k, desc_sw128(stage_of(t)));
+  };
+  auto dprobs = [&](int t) {
+    ss_product<kStepQ, KS, L::kKBox, L::kQBox>(
+        dp, desc_v, desc_sw128(stage_of(t) + L::kBoxes * L::kQBox));
+  };
+  auto grads = [&](int t) {
+    unsigned char* st = stage_of(t);
+    rs_product<DP, kStepQ / 16>(dv_acc, pa,
+                                desc_sw128_mn(st + L::kBoxes * L::kQBox, L::kQBox));
+    rs_product<DP, kStepQ / 16>(dk_acc, dsa, desc_sw128_mn(st, L::kQBox));
+  };
+  // dP^T of step t (S^T already issued): P^T is computed while dP^T runs,
+  // then dS^T, and both are packed.
+  auto finish = [&](int t) {
+    wgmma_fence();
+    dprobs(t);
+    wgmma_commit();
+    if (t + 1 < nsteps) {
+      probs<false>(s, rows(t), c, n - t * kStepQ, tg);
+    } else {
+      probs<true>(s, rows(t), c, n - t * kStepQ, tg);
+    }
+    wgmma_wait<0>();
+    fence_acc(dp);
+    dscores(dp, s, rows(t), tg);
+    pack_acc(pa, s);
+    pack_acc(dsa, dp);
+  };
 
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  // Per step t: dV and dK of step t and S^T of step t + 1 are issued
+  // together, then dP^T of step t + 1, under which P^T of step t + 1 is
+  // computed. dP^T is never in flight beside the packed P^T and dS^T of the
+  // step before, so the live registers stay within the 168 a thread of a
+  // block of more than 256 threads gets.
+  mbar_wait(kv_full, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  scores(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+  finish(0);
+  for (int t = 0; t + 1 < nsteps; ++t) {
+    mbar_wait(&full[(t + 1) % S], ((t + 1) / S) & 1);
+    wgmma_fence();
+    grads(t);
+    scores(t + 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dv_acc);
+    fence_acc(dk_acc);
+    fence_acc(pa);
+    fence_acc(dsa);
+    fence_acc(s);
+    mbar_arrive(&empty[t % S]);
+    finish(t + 1);
   }
+  wgmma_fence();
+  grads(nsteps - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dv_acc);
+  fence_acc(dk_acc);
 
-  for (int q0 = 0; q0 < n; q0 += kRows) {
-    __syncthreads();  // every warp is done with the previous q/dO tile
-    flash::load_tile<DP, kRows, kThreads>(qs, q + base, q0, n, d);
-    flash::load_tile<DP, kRows, kThreads>(dos, dout + base, q0, n, d);
-    for (int i = threadIdx.x; i < kRows; i += kThreads) {
-      const bool in = q0 + i < n;
-      ls[i] = in ? lse[(size_t)bh * n + q0 + i] : 0.f;
-      dls[i] = in ? delta[(size_t)bh * n + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = k q^T and dP^T = v dO^T, 16 keys x 64 queries per warp; the k
-    // and v A fragments are re-read from shared memory (fewer registers)
-    float s[ST][4], dp[ST][4];
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<DP>(ka, ks, r0, kk, g, tg);
-      load_a<DP>(va, vs, r0, kk, g, tg);
-#pragma unroll
-      for (int j = 0; j < ST; ++j) {
-        uint32_t b[2];
-        load_b_rows<DP>(b, qs, j, kk, g, tg);
-        mma_bf16_16816(s[j], ka, b);
-        load_b_rows<DP>(b, dos, j, kk, g, tg);
-        mma_bf16_16816(dp[j], va, b);
-      }
-    }
-    // P^T in place of S^T, dS^T in place of dP^T; queries past N get P = 0
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + tg * 2 + (e & 1);
-        const float p = q0 + c < n ? expf(s[j][e] * scale - ls[c]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dls[c]);
-      }
-    }
-    // dv += P^T dO and dk += dS^T q, (16 x 64, bf16) x (64 x DP)
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      c_to_a(pa, s, kk);
-      c_to_a(sa, dp, kk);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t b[2];
-        load_b_cols<DP>(b, dos, j, kk, g, tg);
-        mma_bf16_16816(dv_acc[j], pa, b);
-        load_b_cols<DP>(b, qs, j, kk, g, tg);
-        mma_bf16_16816(dk_acc[j], sa, b);
-      }
-    }
-  }
-
+  const size_t base = (size_t)bh * n;
+  const int row0 = k0 + wg * 64 + (warp % 4) * 16 + (lane >> 2);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = k0 + r0 + g + r * 8;
+    const int row = row0 + 8 * r;
     if (row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = j * 8 + tg * 2;
+    for (int i = 0; i < DP / 8; ++i) {
+      const int col = i * 8 + tg * 2;
       if (col < d) {
-        const size_t off = base + (size_t)row * d + col;
-        *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-            __floats2bfloat162_rn(dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
+        const size_t off = (base + row) * d + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
+            dk_acc[4 * i + 2 * r] * scale, dk_acc[4 * i + 2 * r + 1] * scale);
         *reinterpret_cast<__nv_bfloat162*>(dv + off) =
-            __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+            __floats2bfloat162_rn(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
       }
     }
   }
+}
+
+// L or D as a 1-D fp32 tensor map over all BH * N values; a box is one
+// step's 64 values, zeros past the end.
+CUresult encode_vec(EncodeTiled encode, CUtensorMap* map, const void* ptr, int len) {
+  const cuuint64_t dims[1] = {(cuuint64_t)len};
+  const cuuint64_t strides[1] = {(cuuint64_t)len * 4};  // (none for one dimension)
+  const cuuint32_t box[1] = {kStepQ};
+  const cuuint32_t ones[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <int DP>
@@ -309,16 +470,26 @@ template <int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int n,
                        int d, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = DkvLayout<DP>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
+  if (encode_rows(encode, &tm_q, q, bh, n, d, kStepQ) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_k, k, bh, n, d, L::kBlockK) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_v, v, bh, n, d, L::kBlockK) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_do, dout, bh, n, d, kStepQ) != CUDA_SUCCESS ||
+      encode_vec(encode, &tm_lse, lse, bh * n) != CUDA_SUCCESS ||
+      encode_vec(encode, &tm_delta, delta, bh * n) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = L::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + kRows - 1) / kRows, bh);
-  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n, d, scale);
+  dim3 grid((n + L::kBlockK - 1) / L::kBlockK, bh);
+  flash_bwd_dkv_kernel<DP><<<grid, L::kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n, d, scale * kLog2e, scale);
   return cudaGetLastError();
 }
 

@@ -68,12 +68,11 @@
 namespace {
 
 using namespace hopper;
+using namespace flash;
 
 constexpr int kBlockK = 128;                 // keys per K/V tile (TMA box rows)
-constexpr int kBox = 64;                     // columns per TMA box (128-byte rows)
 constexpr int kBoxBytes = kBlockK * kBox * 2;  // one K or V box, 16 KB
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The block's shape and its shared memory, from a 1024-byte aligned base:
 // Q's boxes, the K/V ring (per stage, K's boxes then V's), the mbarriers.
@@ -95,122 +94,19 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
-// Shared-memory descriptor of an MN-major bf16 operand in 128-byte swizzle:
-// 64-column boxes of 128-byte rows, one row per k, 8-row groups 1024 bytes
-// apart (SBO) and boxes `box_bytes` apart (LBO), at a 1024-byte aligned
-// address.
-__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t box_bytes) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(box_bytes >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-// wgmma's fp32 accumulator operands, eight at a time: C is the constraint
-// ("+f" to accumulate, "=f" to overwrite).
-#define FLASH_OPS8(C, b)                                                                 \
-  C(d[b]), C(d[b + 1]), C(d[b + 2]), C(d[b + 3]), C(d[b + 4]), C(d[b + 5]), C(d[b + 6]), \
-      C(d[b + 7])
-#define FLASH_ACC8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define FLASH_ACC16 FLASH_ACC8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define FLASH_ACC24 FLASH_ACC16 ", %16, %17, %18, %19, %20, %21, %22, %23"
-#define FLASH_ACC32 FLASH_ACC24 ", %24, %25, %26, %27, %28, %29, %30, %31"
-#define FLASH_ACC40 FLASH_ACC32 ", %32, %33, %34, %35, %36, %37, %38, %39"
-#define FLASH_ACC48 FLASH_ACC40 ", %40, %41, %42, %43, %44, %45, %46, %47"
-#define FLASH_ACC56 FLASH_ACC48 ", %48, %49, %50, %51, %52, %53, %54, %55"
-#define FLASH_ACC64 FLASH_ACC56 ", %56, %57, %58, %59, %60, %61, %62, %63"
-
-// S (64 x 128 fp32 accumulator: s[4i + 2j + e] is row 16 * warp + lane / 4
-// + 8j of the warpgroup, column 8i + 2 * (lane % 4) + e) (+)= A (64 x 16,
-// K-major in shared memory) * B (16 x 128, K-major in shared memory),
-// through their descriptors. The first k-step overwrites S (its operands
-// are outputs only, so S is dead before it), the others accumulate.
-#define FLASH_WGMMA_SS(NAME, C, SCALE_D)                                                  \
-  __device__ __forceinline__ void NAME(float (&d)[64], uint64_t desc_a, uint64_t desc_b) { \
-    asm volatile("{\n"                                                                    \
-                 ".reg .pred p;\n"                                                        \
-                 "setp.ne.b32 p, %66, 0;\n"                                               \
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                 \
-                 "{" FLASH_ACC64 "}, %64, %65, p, 1, 1, 0, 0;\n"                           \
-                 "}\n"                                                                    \
-                 : FLASH_OPS8(C, 0), FLASH_OPS8(C, 8), FLASH_OPS8(C, 16), FLASH_OPS8(C, 24), \
-                   FLASH_OPS8(C, 32), FLASH_OPS8(C, 40), FLASH_OPS8(C, 48),                \
-                   FLASH_OPS8(C, 56)                                                      \
-                 : "l"(desc_a), "l"(desc_b), "r"(SCALE_D));                               \
-  }
-FLASH_WGMMA_SS(wgmma_ss_first, "=f", 0)
-FLASH_WGMMA_SS(wgmma_ss_acc, "+f", 1)
-
-// O (64 x N fp32, the same accumulator layout) += A (64 x 16 bf16 from
-// registers, each warp's 16 rows as an mma.sync m16n8k16 A fragment) * B
-// (16 x N bf16, MN-major in shared memory: the transposed-B form), for
-// N = 16, 32, ..., 128: one instruction per N, from the macro below.
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t* a,
-                                            uint64_t desc_b);
-
-// N: the product's width; ACC: its N / 2 accumulator operands; A0..A3, DS,
-// SC: the operand numbers of the A fragment, the B descriptor and the
-// scale-d flag that follow them; then the accumulator constraints.
-#define FLASH_WGMMA_RS_TB(N, ACC, A0, A1, A2, A3, DS, SC, ...)                          \
-  template <>                                                                           \
-  __device__ __forceinline__ void wgmma_rs_tb<N>(float (&d)[N / 2], const uint32_t* a,  \
-                                                 uint64_t desc_b) {                     \
-    asm volatile("{\n"                                                                  \
-                 ".reg .pred p;\n"                                                      \
-                 "setp.ne.b32 p, %" #SC ", 0;\n"                                        \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "           \
-                 "{" ACC "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DS          \
-                 ", p, 1, 1, 1;\n"                                                      \
-                 "}\n"                                                                  \
-                 : __VA_ARGS__                                                          \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));    \
-  }
-#define FLASH_ACC_OPS(b) FLASH_OPS8("+f", b)
-
-FLASH_WGMMA_RS_TB(16, FLASH_ACC8, 8, 9, 10, 11, 12, 13, FLASH_ACC_OPS(0))
-FLASH_WGMMA_RS_TB(32, FLASH_ACC16, 16, 17, 18, 19, 20, 21, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8))
-FLASH_WGMMA_RS_TB(48, FLASH_ACC24, 24, 25, 26, 27, 28, 29, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
-                  FLASH_ACC_OPS(16))
-FLASH_WGMMA_RS_TB(64, FLASH_ACC32, 32, 33, 34, 35, 36, 37, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
-                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24))
-FLASH_WGMMA_RS_TB(80, FLASH_ACC40, 40, 41, 42, 43, 44, 45, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
-                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32))
-FLASH_WGMMA_RS_TB(96, FLASH_ACC48, 48, 49, 50, 51, 52, 53, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
-                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32), FLASH_ACC_OPS(40))
-FLASH_WGMMA_RS_TB(112, FLASH_ACC56, 56, 57, 58, 59, 60, 61, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
-                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32), FLASH_ACC_OPS(40),
-                  FLASH_ACC_OPS(48))
-FLASH_WGMMA_RS_TB(128, FLASH_ACC64, 64, 65, 66, 67, 68, 69, FLASH_ACC_OPS(0), FLASH_ACC_OPS(8),
-                  FLASH_ACC_OPS(16), FLASH_ACC_OPS(24), FLASH_ACC_OPS(32), FLASH_ACC_OPS(40),
-                  FLASH_ACC_OPS(48), FLASH_ACC_OPS(56))
-
-// s = Q K^T over KS k-steps of 16 columns: k-step kk reads box kk / 4
-// (Q's boxes QBOX bytes apart, K's kBoxBytes) at 32-byte column offset
-// kk % 4 (the descriptors count 16-byte units).
+// s = Q K^T over KS k-steps of 16 columns (Q's boxes QBOX bytes apart,
+// K's kBoxBytes).
 template <int KS, int QBOX>
 __device__ __forceinline__ void qk(float (&s)[64], uint64_t desc_q, uint64_t desc_k) {
-  wgmma_ss_first(s, desc_q, desc_k);
-#pragma unroll
-  for (int kk = 1; kk < KS; ++kk) {
-    wgmma_ss_acc(s, desc_q + (kk / 4) * (QBOX >> 4) + (kk % 4) * 2,
-                 desc_k + (kk / 4) * (kBoxBytes >> 4) + (kk % 4) * 2);
-  }
+  ss_product<kBlockK, KS, QBOX, kBoxBytes>(s, desc_q, desc_k);
 }
 
-// acc += P V over the tile's 8 k-steps of 16 keys (V's rows kk*16..,
-// 2048 bytes apart).
+// acc += P V over the tile's 8 k-steps of 16 keys.
 template <int DP>
 __device__ __forceinline__ void pv(float (&acc)[DP / 2], const uint32_t (&p)[32],
                                    uint64_t desc_v) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk) {
-    wgmma_rs_tb<DP>(acc, p + 4 * kk, desc_v + kk * (2048 >> 4));
-  }
+  rs_product<DP, kBlockK / 16>(acc, p, desc_v);
 }
 
 // The online softmax of one tile's logits s, in place: s becomes the fp32
@@ -260,11 +156,6 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m2)[2], float (&
   for (int r = 0; r < 2; ++r) {
     l[r] = l[r] * alpha[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
   }
-}
-
-__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = flash::pack_f32(s[2 * i], s[2 * i + 1]);
 }
 
 template <int N>
@@ -391,7 +282,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   turn_end<WG>(wg);
   fence_acc(s);
   softmax<true>(s, m2, l, alpha, c, n, tg);
-  pack_p(p, s);
+  pack_acc(p, s);
 
   // Tile t >= 1; the last one masked (its keys past N).
   auto step = [&](int t, auto masked) {
@@ -413,7 +304,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     fence_acc(acc);
     fence_acc(p);
     mbar_arrive(&empty[(t - 1) % S]);
-    pack_p(p, s);
+    pack_acc(p, s);
   };
   for (int t = 1; t + 1 < ntiles; ++t) step(t, std::false_type());
   if (ntiles > 1) step(ntiles - 1, std::true_type());
@@ -452,28 +343,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
-// q, k or v as a 3-D tensor (D, N, BH), innermost first; a box is 64
-// columns of 128 rows of one head, 128-byte swizzle, zeros out of bounds.
-CUresult encode_qkv(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int n,
-                    int d, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
-  const cuuint32_t box[3] = {kBox, (cuuint32_t)rows, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                    int n, int d, float scale, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (encode_qkv(encode, &tm_q, q, bh, n, d, Layout<DP>::kBlockQ) != CUDA_SUCCESS ||
-      encode_qkv(encode, &tm_k, k, bh, n, d, kBlockK) != CUDA_SUCCESS ||
-      encode_qkv(encode, &tm_v, v, bh, n, d, kBlockK) != CUDA_SUCCESS) {
+  if (encode_rows(encode, &tm_q, q, bh, n, d, Layout<DP>::kBlockQ) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_k, k, bh, n, d, kBlockK) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_v, v, bh, n, d, kBlockK) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
   constexpr int smem = Layout<DP>::kBytes;

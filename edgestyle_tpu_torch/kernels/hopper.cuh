@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives shared by the kernels that use TMA, mbarriers
-// and wgmma (fused_conv.cu, flash_fwd.cu): shared-memory addresses, the
-// mbarrier ring's operations, TMA tile loads, ldmatrix, the 128-byte
-// swizzle descriptor, the wgmma fences and waits, and the run-time look-up of
-// cuTensorMapEncodeTiled (the libraries are not linked against libcuda).
-// Each kernel keeps its own wgmma shapes.
+// and wgmma (fused_conv.cu, flash_fwd.cu, flash_bwd.cu's dk/dv kernel):
+// shared-memory addresses, the mbarrier ring's operations, TMA tile loads,
+// ldmatrix, the 128-byte swizzle descriptor, the wgmma fences and waits,
+// and the run-time look-up of cuTensorMapEncodeTiled (the libraries are not
+// linked against libcuda). The wgmma shapes live with their kernels
+// (fused_conv.cu; flash_common.cuh for the two flash kernels).
 
 #pragma once
 
@@ -50,6 +51,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

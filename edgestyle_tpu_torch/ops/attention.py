@@ -3,10 +3,12 @@
 Counterpart of edgestyle_tpu/ops/attention.py. Two implementations, picked
 from the inputs alone:
 
-  * ``flash``  -- the flash-attention kernel (ops/flash.py), for the long
-                  spatial self-attentions: CUDA tensors, nq == nk >= 1024
-                  and head dim % 8 == 0 (the JAX ``_pick_impl`` rule with the
-                  card in place of the TPU), up to the kernel's head dim 128;
+  * ``flash``  -- the flash-attention kernels (ops/flash.py), for the long
+                  spatial self-attentions: CUDA tensors of any float type
+                  (as the reference's Pallas kernel takes any type), nq ==
+                  nk >= 1024 and head dim % 8 == 0 (the JAX ``_pick_impl``
+                  rule with the card in place of the TPU), up to the
+                  kernel's head dim 128;
   * ``plain``  -- fp32 logits and softmax with ``torch.matmul`` (the JAX
                   ``_xla_attention``): the 77-token cross-attention, the
                   256- and 64-token levels, the VAE mid attention (one head

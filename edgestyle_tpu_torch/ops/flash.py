@@ -131,8 +131,8 @@ def _bwd_args(what: str, q, k, v, dout, lse, delta):
             raise ValueError(f"{what}: {name} must be fp32 CUDA ({b}, {h}, {n}), got "
                              f"{tuple(t.shape)} {t.dtype}")
     qf, kf, vf, dof = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v, dout))
-    kernels.check_aligned(what, q=qf, k=kf, v=vf, dout=dof)
     rows = (lse.reshape(b * h, n).contiguous(), delta.reshape(b * h, n).contiguous())
+    kernels.check_aligned(what, q=qf, k=kf, v=vf, dout=dof, lse=rows[0], delta=rows[1])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return (qf, kf, vf, dof, *rows), stream
 
@@ -174,27 +174,34 @@ def flash_attention_backward_cuda(q, k, v, out, lse, dout, scale: float):
 class FlashAttention(torch.autograd.Function):
     """The flash_attention custom VJP. On CUDA tensors the forward and
     backward launch the kernels; on CPU tensors they run the plain versions
-    of the same two functions."""
+    of the same two functions. The kernels multiply bf16 operands, so on
+    the card q, k, v of another type (an fp32 model's) are rounded to bf16
+    on the way in, as is dO; logits, softmax and sums stay fp32, and the
+    output and the gradients are returned in the inputs' types."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.is_cuda:
-            out, lse = flash_attention_cuda(q, k, v, scale)
-        else:
-            out = flash_attention_reference(q, k, v, scale)
-            lse = flash_attention_reference_lse(q, k, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
         ctx.scale = scale
+        if q.is_cuda:
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            out, lse = flash_attention_cuda(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out.to(ctx.dtypes[0])
+        out = flash_attention_reference(q, k, v, scale)
+        lse = flash_attention_reference_lse(q, k, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         if q.is_cuda:
-            grads = flash_attention_backward_cuda(q, k, v, out, lse, dout, ctx.scale)
+            grads = flash_attention_backward_cuda(q, k, v, out, lse, dout.to(q.dtype),
+                                                  ctx.scale)
         else:
             grads = flash_attention_backward_reference(q, k, v, out, lse, dout, ctx.scale)
-        return (*grads, None)
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,8 +18,9 @@ the card the op is two launches:
 (``group_norm(act=silu)`` -> ``F.conv2d`` -> + bias, as JAX's
 ``_reference``): the CPU path and the test oracle, never a fallback on the
 card. Both go through :class:`NormActConv3x3`, the counterpart of the
-``_fused`` custom VJP: its forward takes :func:`fused_route` on CUDA tensors
-(every shape) and the plain version on CPU tensors; its backward recomputes
+``_fused`` custom VJP: its forward takes :func:`fused_route` where
+:func:`takes_kernels` says so (CUDA x with a bf16 weight, every shape) and
+the plain version otherwise (CPU tensors, fp32 models); its backward recomputes
 the plain version and returns its vjp, as ``_fused_bwd`` does (the JAX
 package has no backward kernel for it). The raw wrappers refuse inputs that
 would record a graph.
@@ -213,6 +214,15 @@ def fused_route(x, gamma, beta, weight, bias, num_groups: int, eps: float,
     return conv(x, s, t, weight, bias)
 
 
+def takes_kernels(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """The op's dispatch rule, by device and type (the reference's
+    ``_eligible`` sends non-bf16 x to XLA): the kernels take CUDA x, bf16 or
+    fp32 (the LoRA trunks' first convs see fp32 x), with a bf16 weight. An
+    fp32 weight, which an fp32 model has, takes the plain version, as on the
+    CPU: the conv kernel multiplies bf16 operands only."""
+    return x.is_cuda and weight.dtype == torch.bfloat16
+
+
 def norm_act_conv3x3_reference(x, gamma, beta, weight, bias, num_groups: int = 32,
                                eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
     """Plain version: GroupNorm -> SiLU -> 3x3 conv (pad 1) + bias, in dtype."""
@@ -222,15 +232,17 @@ def norm_act_conv3x3_reference(x, gamma, beta, weight, bias, num_groups: int = 3
 
 
 class NormActConv3x3(torch.autograd.Function):
-    """The ``_fused`` custom VJP: the forward takes :func:`fused_route` (the
-    plain version on CPU tensors); the backward recomputes
+    """The ``_fused`` custom VJP: the forward takes :func:`fused_route`
+    where :func:`takes_kernels` says so, cast to ``dtype`` as the plain
+    version returns it, and the plain version otherwise; the backward
+    recomputes
     :func:`norm_act_conv3x3_reference` and returns its vjp for x, gamma,
     beta, weight and bias."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, weight, bias, num_groups, eps, dtype):
-        if x.is_cuda:
-            out = fused_route(x, gamma, beta, weight, bias, num_groups, eps)
+        if takes_kernels(x, weight):
+            out = fused_route(x, gamma, beta, weight, bias, num_groups, eps).to(dtype)
         else:
             out = norm_act_conv3x3_reference(x, gamma, beta, weight, bias, num_groups, eps,
                                              dtype)
@@ -252,5 +264,6 @@ class NormActConv3x3(torch.autograd.Function):
 def norm_act_conv3x3(x, gamma, beta, weight, bias, *, num_groups: int = 32,
                      eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
     """GroupNorm -> SiLU -> 3x3 SAME conv through :class:`NormActConv3x3`:
-    the kernels for CUDA tensors, the plain version for CPU tensors."""
+    the kernels for CUDA x with a bf16 weight, the plain version otherwise
+    (:func:`takes_kernels`)."""
     return NormActConv3x3.apply(x, gamma, beta, weight, bias, num_groups, eps, dtype)

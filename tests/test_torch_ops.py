@@ -9,6 +9,7 @@ them on the CPU.
 
 import functools
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -205,12 +206,59 @@ def test_multi_head_attention_matches_jax(rng, nq, nk, heads):
 
 
 def test_attention_dispatch_rule():
-    """CPU tensors always take the plain version; the flash kernel is only
-    for CUDA tensors with nq == nk >= 1024 and head dim % 8 == 0."""
+    """CPU tensors always take the plain version; the flash kernels are for
+    CUDA tensors of any float type with nq == nk >= 1024 and head dim % 8
+    == 0, up to 128: an fp32 model's long attentions take the kernels too,
+    as the reference's Pallas kernel takes fp32. The rule reads q's device
+    alone, so a stand-in with is_cuda set plays the card's tensor here."""
     cpu = torch.zeros(1)
     assert pick_impl(cpu, 4096, 4096, 40) == "plain"
+    assert pick_impl(cpu.to(torch.bfloat16), 4096, 4096, 40) == "plain"
     meta = torch.zeros(1, device="meta")
     assert pick_impl(meta, 4096, 4096, 40) == "plain"
+
+    def card(dtype):
+        return SimpleNamespace(is_cuda=True, dtype=dtype)
+
+    assert pick_impl(card(torch.bfloat16), 4096, 4096, 40) == "flash"
+    assert pick_impl(card(torch.bfloat16), 1024, 1024, 80) == "flash"
+    assert pick_impl(card(torch.float32), 4096, 4096, 40) == "flash"
+    assert pick_impl(card(torch.float32), 1024, 1024, 80) == "flash"
+    assert pick_impl(card(torch.float32), 4096, 77, 40) == "plain"
+    assert pick_impl(card(torch.bfloat16), 4096, 77, 40) == "plain"
+    assert pick_impl(card(torch.bfloat16), 4096, 4096, 512) == "plain"
+
+
+@pytest.mark.parametrize("device,x_dtype,w_dtype,kernels", [
+    ("cuda", torch.bfloat16, torch.bfloat16, True),
+    ("cuda", torch.float32, torch.bfloat16, True),
+    ("cuda", torch.float32, torch.float32, False),
+    ("cuda", torch.bfloat16, torch.float32, False),
+    ("cpu", torch.bfloat16, torch.bfloat16, False),
+    ("cpu", torch.float32, torch.float32, False)])
+def test_conv_dispatch_rule(device, x_dtype, w_dtype, kernels):
+    """The fused conv op takes the kernels for CUDA x (bf16, or fp32 as in
+    the LoRA trunks' first convs) with a bf16 weight; an fp32 weight (an
+    fp32 model) and every CPU tensor take the plain version. The rule reads
+    x's device and the weight's type alone: a stand-in plays the card's x."""
+    x = SimpleNamespace(is_cuda=device == "cuda", dtype=x_dtype)
+    assert fused_conv.takes_kernels(x, torch.zeros(1, dtype=w_dtype)) is kernels
+
+
+def test_conv_kernel_route_returns_requested_dtype(monkeypatch):
+    """On the kernels' route the op returns its dtype argument, as the plain
+    version does, though the conv kernel writes bf16: the route is run here
+    with the conv kernel's plain version in the kernel's place."""
+    rng = np.random.default_rng(6)
+    x, gamma, beta, k, bias = _fused_inputs(rng, 1, 6, 5, 32, 16)
+    monkeypatch.setattr(fused_conv, "takes_kernels", lambda x, w: True)
+    monkeypatch.setattr(fused_conv, "fused_route", functools.partial(
+        fused_conv.fused_route, conv=fused_conv.fused_gn_silu_conv3x3_reference))
+    args = (nchw(x).contiguous(memory_format=torch.channels_last), torch.from_numpy(gamma),
+            torch.from_numpy(beta), _oihw(k, torch.bfloat16), torch.from_numpy(bias))
+    for dtype in (torch.bfloat16, torch.float32):
+        out = fused_conv.norm_act_conv3x3(*args, num_groups=8, dtype=dtype)
+        assert out.dtype == dtype
 
 
 @pytest.mark.parametrize(
@@ -388,13 +436,79 @@ def test_kernel_alignment_check():
 
 # ------------------------------------------------------------ on the card
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,nk,d,impl", [
-    (4096, 4096, 40, "flash"), (1024, 1024, 80, "flash"), (4096, 4096, 512, "plain"),
-    (4096, 77, 40, "plain"), (256, 256, 160, "plain"), (1024, 1024, 36, "plain")])
-def test_attention_dispatch_rule_on_card(cuda, nq, nk, d, impl):
-    """On the card: the flash kernel for nq == nk >= 1024 and head dim % 8
-    == 0 up to its limit of 128 (the VAE's single 512 head stays plain)."""
-    assert pick_impl(torch.zeros(1, device=cuda), nq, nk, d) == impl
+@pytest.mark.parametrize("nq,nk,d,dtype,impl", [
+    (4096, 4096, 40, torch.bfloat16, "flash"), (1024, 1024, 80, torch.bfloat16, "flash"),
+    (4096, 4096, 512, torch.bfloat16, "plain"), (4096, 77, 40, torch.bfloat16, "plain"),
+    (256, 256, 160, torch.bfloat16, "plain"), (1024, 1024, 36, torch.bfloat16, "plain"),
+    (4096, 4096, 40, torch.float32, "flash"), (1024, 1024, 80, torch.float32, "flash")])
+def test_attention_dispatch_rule_on_card(cuda, nq, nk, d, dtype, impl):
+    """On the card: the flash kernels for q of any float type with nq == nk
+    >= 1024 and head dim % 8 == 0 up to their limit of 128 (the VAE's
+    single 512 head stays plain)."""
+    assert pick_impl(torch.zeros(1, device=cuda, dtype=dtype), nq, nk, d) == impl
+
+
+@pytest.mark.gpu
+def test_fp32_multi_head_attention_runs_kernels_on_card(cuda):
+    """An fp32 model's long self-attention on the card runs the forward, dq
+    and dk/dv kernels once each on q, k, v and dO rounded to bf16; the
+    output and the gradients come back fp32 and agree with the plain fp32
+    version within the kernels' card tolerances (REL_TOL forward,
+    BWD_REL_TOL backward, of the largest plain value)."""
+    from edgestyle_tpu_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, g = (torch.randn((2, 1024, 160), generator=gen, device=cuda) for _ in range(4))
+    d = 80
+
+    def run(attend):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = attend(*leaves)
+        return (out, *torch.autograd.grad(out, leaves, g))
+
+    def plain(*qkv):
+        heads = [t.reshape(2, -1, 2, d).transpose(1, 2) for t in qkv]
+        out = flash.flash_attention_reference(*heads, d ** -0.5)
+        return out.transpose(1, 2).reshape(2, -1, 160)
+
+    before = dict(kernels.LAUNCHES)
+    got = run(lambda *qkv: multi_head_attention(*qkv, 2))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.LAUNCHES[name] == before[name] + 1, name
+    ref = run(plain)
+    for a, r, tol in zip(got, ref, (2.0 ** -6, *(2.0 ** -5,) * 3)):
+        assert a.dtype == torch.float32
+        assert (a - r).abs().max().item() <= tol * r.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_fp32_norm_act_conv3x3_takes_plain_route_on_card(cuda, x_dtype):
+    """An fp32 weight on the card takes the plain version (no kernel
+    launch) and the op returns its fp32 dtype, equal to the plain version;
+    and a bf16 weight with dtype fp32 takes the kernels and still returns
+    fp32."""
+    from edgestyle_tpu_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 64, 16, 16), generator=gen, device=cuda).to(x_dtype)
+    gamma = 1.0 + 0.1 * torch.randn((64,), generator=gen, device=cuda)
+    beta = 0.1 * torch.randn((64,), generator=gen, device=cuda)
+    wt = (torch.randn((32, 64, 3, 3), generator=gen, device=cuda) / 24.0)
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    bias = 0.1 * torch.randn((32,), generator=gen, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    out = fused_conv.norm_act_conv3x3(x, gamma, beta, wt, bias, num_groups=32,
+                                      dtype=torch.float32)
+    assert kernels.LAUNCHES == before
+    assert out.dtype == torch.float32
+    ref = fused_conv.norm_act_conv3x3_reference(x, gamma, beta, wt, bias, 32, 1e-5,
+                                                torch.float32)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    out = fused_conv.norm_act_conv3x3(x, gamma, beta, wt.to(torch.bfloat16), bias,
+                                      num_groups=32, dtype=torch.float32)
+    assert kernels.LAUNCHES["fused_gn_silu_conv3x3"] == before["fused_gn_silu_conv3x3"] + 1
+    assert out.dtype == torch.float32
 
 
 @pytest.mark.gpu
