@@ -27,11 +27,36 @@
 // shapes (N = 4096, D = 40; N = 1024, D = 80) the tensor cores bound
 // dk/dv; at D = 40 the special-function unit's exponentials bound dq.
 //
-// flash_bwd_dq (the first, plain design; its Hopper redesign is still to
-// come): one 4-warp block per 64-row q tile, mma.sync m16n8k16 from plain
-// shared-memory tiles (D = 40 zero-padded to 48), one buffer, no TMA; each
-// result's C fragments are the A fragments of the next product
-// (flash_common.cuh).
+// flash_bwd_dq, for Hopper: the forward's problem with L known and one
+// product more, on the same primitives (flash_common.cuh, hopper.cuh).
+//   - A block owns 128 query rows (64 when D > 80, where dQ, one step's S
+//     and dP and the packed dS of the step before outgrow the 168 registers
+//     a thread that ptxas gives a block of more than 256 threads) and runs
+//     one producer warp and one consumer warpgroup per 64 queries. Q and dO
+//     are read once by TMA and stay in shared memory; each thread keeps its
+//     two rows' L * log2 e and D in registers.
+//   - The producer streams the keys in steps of 64 through an mbarrier ring
+//     (up to 8 stages, as many as fit beside Q and dO): per step K's and V's
+//     (D, N, BH) boxes of 64 columns in 128-byte swizzle, zero-filled by TMA
+//     past D and past N (so D = 40 needs no padding copy). Every wait traps
+//     after a bounded number of polls.
+//   - S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both operands
+//     K-major in shared memory, as the forward's Q K^T.
+//   - P = ex2(S * (scale * log2 e) - L * log2 e), one FFMA and one ex2 per
+//     logit, and dS = P * (dP - D) are computed in the accumulator
+//     registers; keys past N are masked on the last step only. dS is packed
+//     to bf16 as the register A operand, as the forward packs P.
+//   - dQ += dS K takes K as the MN-major (transposed-B) operand from the box
+//     that served S, as the forward takes V, at N = D rounded up to 16. dQ
+//     is scaled once at the end.
+//   - Per step a warpgroup issues S and dP of step t + 1, then dQ of step
+//     t, and computes P and dS of step t + 1 while dQ of step t runs; the
+//     two warpgroups' products interleave on the tensor cores. The last dQ
+//     is peeled, so no product is issued on a conditional path. In one call
+//     this ran 4-8% faster than dk/dv's staggered schedule (dQ of step t
+//     with S of step t + 1, then dP of step t + 1 under the exponentials),
+//     and turns between the two warpgroups (the forward's named barriers)
+//     made it 0.5-5% slower (PERF.md).
 //
 // flash_bwd_dkv, for Hopper: the forward's problem transposed, on the
 // forward's primitives (flash_common.cuh, hopper.cuh).
@@ -74,8 +99,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -84,120 +107,210 @@ namespace {
 using namespace hopper;
 using namespace flash;
 
-constexpr int kRows = 64;     // rows of a tile: 4 warps x 16
-constexpr int kThreads = 128;
-constexpr int ST = kRows / 8;  // n-tiles of a 16 x 64 S tile
+constexpr int kStepK = 64;  // keys per dq step (rows of a K or V box)
 
+// The dq block's shape and its shared memory, from a 1024-byte aligned
+// base: Q's boxes, dO's boxes, the ring (per stage: K's boxes, V's boxes),
+// the mbarriers.
 template <int DP>
-constexpr size_t smem_bytes() {
-  return (size_t)4 * kRows * (DP + 8) * sizeof(__nv_bfloat16) + 2 * kRows * sizeof(float);
+struct DqLayout {
+  // Consumer warpgroups of 64 query rows: two up to D = 80, where dQ, one
+  // step's S and dP and the packed dS of the step before fit the 168
+  // registers a thread that ptxas gives a block of more than 256 threads
+  // (164 at D = 80); one above (two spilled at D = 96).
+  static constexpr int kWG = DP <= 80 ? 2 : 1;
+  static constexpr int kBlockQ = 64 * kWG;
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;  // and the producer warp
+  static constexpr int kBoxes = DP > 64 ? 2 : 1;
+  static constexpr int kQBox = kBlockQ * 128;  // one Q or dO box
+  static constexpr int kKBox = kStepK * 128;   // one K or V box, 8 KB
+  static constexpr int kQD = 2 * kBoxes * kQBox;
+  static constexpr int kStageBytes = 2 * kBoxes * kKBox;
+  // as many stages as fit in 200 KB beside Q and dO, at most 8 (512 keys
+  // ahead, as the forward's 4 stages of 128)
+  static constexpr int kFit = (200 * 1024 - kQD) / kStageBytes;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kBar = kQD + kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// P of one step in place of S. In the accumulator layout s[4i + 2j + e] is
+// row g + 8j of the thread's warp (g = lane / 4) and key 8i + 2 tg + e of
+// the step; nl[j] is that row's -L * log2 e. p = ex2(s * c + nl) with c =
+// scale * log2 e. With kMask, keys >= `valid` get p = 0 (and so ds = 0), by
+// selects.
+template <bool kMask>
+__device__ __forceinline__ void row_probs(float (&s)[32], const float (&nl)[2], float c,
+                                          int valid, int tg) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = ex2(fmaf(s[i], c, nl[(i >> 1) & 1]));
+    s[i] = kMask && (i / 4) * 8 + 2 * tg + (i & 1) >= valid ? 0.f : p;
+  }
 }
 
-// dq for one 64-row q tile: loop over the 64-row k/v tiles.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int n, int d, float scale) {
-  constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;  // k-steps over the head dim
-  constexpr int NT = DP / 8;   // n-tiles of the dq accumulator
+// dS = P * (dP - D) in place of dP, from P in p; dl[j] is row j's D.
+__device__ __forceinline__ void row_dscores(float (&dp)[32], const float (&p)[32],
+                                            const float (&dl)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - dl[(i >> 1) & 1]);
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kRows * LD;
-  __nv_bfloat16* ks = dos + kRows * LD;
-  __nv_bfloat16* vs = ks + kRows * LD;
+// DP: the head dim rounded up to 16, the k extent of S and dP and the width
+// of dQ.
+template <int DP>
+__global__ void __launch_bounds__(DqLayout<DP>::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int n,
+                    int d, float c, float scale) {
+  using L = DqLayout<DP>;
+  constexpr int S = L::kStages;
+  constexpr int KS = DP / 16;  // k-steps of S and dP
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + L::kBoxes * L::kQBox;
+  unsigned char* ring = smem + L::kQD;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + S;
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const size_t base = (size_t)bh * n * d;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int r0 = warp * 16;
+  const int q0 = blockIdx.x * L::kBlockQ;
+  const int nsteps = (n + kStepK - 1) / kStepK;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
 
-  flash::load_tile<DP, kRows, kThreads>(qs, q + base, q0, n, d);
-  flash::load_tile<DP, kRows, kThreads>(dos, dout + base, q0, n, d);
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], L::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // this warp's 16 q and dO rows stay in registers for the whole loop
-  uint32_t qa[KS][4], da[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a<DP>(qa[kk], qs, r0, kk, g, tg);
-    load_a<DP>(da[kk], dos, r0, kk, g, tg);
+  if (warp == L::kConsumers / 32) {
+    // Producer warp: one thread loads Q and dO once, then step t's K and V
+    // into stage t % S once every consumer thread has released what the
+    // stage held before.
+    if (lane != 0) return;
+    mbar_expect_tx(qd_full, L::kQD);
+    for (int b = 0; b < L::kBoxes; ++b) {
+      tma_load_3d(qs + b * L::kQBox, &tm_q, qd_full, b * kBox, q0, bh);
+      tma_load_3d(dos + b * L::kQBox, &tm_do, qd_full, b * kBox, q0, bh);
+    }
+    for (int t = 0; t < nsteps; ++t) {
+      const int stage = t % S;
+      unsigned char* st = ring + stage * L::kStageBytes;
+      mbar_wait(&empty[stage], ((t / S) & 1) ^ 1);
+      mbar_expect_tx(&full[stage], L::kStageBytes);
+      for (int b = 0; b < L::kBoxes; ++b) {
+        tma_load_3d(st + b * L::kKBox, &tm_k, &full[stage], b * kBox, t * kStepK, bh);
+        tma_load_3d(st + (L::kBoxes + b) * L::kKBox, &tm_v, &full[stage], b * kBox,
+                    t * kStepK, bh);
+      }
+    }
+    return;
   }
-  // rows g and g + 8 of the warp: L and D (0 past N, where q and dO rows
-  // are 0 too, so dS is 0 there)
-  float L[2], Dl[2];
+
+  // Consumers: warpgroup wg owns query rows 64wg..64wg+63 of the block; this
+  // thread rows g and g + 8 of its warp's 16, whose -L * log2 e and D it
+  // keeps (0 past N, where Q's and dO's rows are 0 too, so dS is 0 there).
+  const int wg = warp / 4;
+  const int tg = lane & 3;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + (lane >> 2);
+  const size_t base = (size_t)bh * n;
+  float nl[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + 8 * r;
-    L[r] = row < n ? lse[(size_t)bh * n + row] : 0.f;
-    Dl[r] = row < n ? delta[(size_t)bh * n + row] : 0.f;
+    const int row = row0 + 8 * r;
+    nl[r] = row < n ? -lse[base + row] * kLog2e : 0.f;
+    dl[r] = row < n ? delta[base + row] : 0.f;
   }
 
-  float acc[NT][4];
+  float s[32];       // S, then P, of one step: 64 queries x 64 keys
+  float dp[32];      // dP, then dS
+  float acc[DP / 2];  // dQ, unscaled
+  uint32_t dsa[16];  // dS in bf16: 4 k-steps of A fragments
 #pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const uint64_t desc_q = desc_sw128(qs + wg * 64 * 128);
+  const uint64_t desc_do = desc_sw128(dos + wg * 64 * 128);
+  auto stage_of = [&](int t) { return ring + (t % S) * L::kStageBytes; };
+  // S = Q K^T, dP = dO V^T, and dQ += dS K (K MN-major), of step t
+  auto scores = [&](int t) {
+    ss_product<kStepK, KS, L::kQBox, L::kKBox>(s, desc_q, desc_sw128(stage_of(t)));
+  };
+  auto dprobs = [&](int t) {
+    ss_product<kStepK, KS, L::kQBox, L::kKBox>(
+        dp, desc_do, desc_sw128(stage_of(t) + L::kBoxes * L::kKBox));
+  };
+  auto grads = [&](int t) {
+    rs_product<DP, kStepK / 16>(acc, dsa, desc_sw128_mn(stage_of(t), L::kKBox));
+  };
+  // P and dS of step t in place of its S and dP (both done).
+  auto finish = [&](int t) {
+    fence_acc(s);
+    fence_acc(dp);
+    if (t + 1 < nsteps) {
+      row_probs<false>(s, nl, c, n - t * kStepK, tg);
+    } else {
+      row_probs<true>(s, nl, c, n - t * kStepK, tg);
+    }
+    row_dscores(dp, s, dl);
+  };
 
-  for (int k0 = 0; k0 < n; k0 += kRows) {
-    __syncthreads();  // every warp is done with the previous k/v tile
-    flash::load_tile<DP, kRows, kThreads>(ks, k + base, k0, n, d);
-    flash::load_tile<DP, kRows, kThreads>(vs, v + base, k0, n, d);
-    __syncthreads();
-
-    float s[ST][4], dp[ST][4];
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t b[2];
-        load_b_rows<DP>(b, ks, j, kk, g, tg);
-        mma_bf16_16816(s[j], qa[kk], b);
-        load_b_rows<DP>(b, vs, j, kk, g, tg);
-        mma_bf16_16816(dp[j], da[kk], b);
-      }
-    }
-    // dS = P * (dP - D) in place of S; keys past N get P = 0
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tg * 2 + (e & 1);
-        const float p = key < n ? expf(s[j][e] * scale - L[e >> 1]) : 0.f;
-        s[j][e] = p * (dp[j][e] - Dl[e >> 1]);
-      }
-    }
-    // dq += dS (16 x 64, bf16) k (64 x DP)
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s, kk);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t b[2];
-        load_b_cols<DP>(b, ks, j, kk, g, tg);
-        mma_bf16_16816(acc[j], a, b);
-      }
-    }
+  // Per step t: S and dP of step t + 1, then dQ of step t, are issued, and
+  // P and dS of step t + 1 are computed while dQ of step t runs.
+  mbar_wait(qd_full, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  scores(0);
+  dprobs(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  finish(0);
+  pack_acc(dsa, dp);
+  for (int t = 0; t + 1 < nsteps; ++t) {
+    mbar_wait(&full[(t + 1) % S], ((t + 1) / S) & 1);
+    wgmma_fence();
+    scores(t + 1);
+    dprobs(t + 1);
+    wgmma_commit();
+    grads(t);
+    wgmma_commit();
+    wgmma_wait<1>();
+    finish(t + 1);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_acc(dsa);
+    mbar_arrive(&empty[t % S]);
+    pack_acc(dsa, dp);
   }
+  wgmma_fence();
+  grads(nsteps - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + r * 8;
+    const int row = row0 + 8 * r;
     if (row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = j * 8 + tg * 2;
+    for (int i = 0; i < DP / 8; ++i) {
+      const int col = i * 8 + tg * 2;
       if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row * d + col) =
-            __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dq + (base + row) * d + col) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
       }
     }
   }
@@ -453,16 +566,24 @@ template <int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int n, int d,
                       float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = DqLayout<DP>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (encode_rows(encode, &tm_q, q, bh, n, d, L::kBlockQ) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_k, k, bh, n, d, kStepK) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_v, v, bh, n, d, kStepK) != CUDA_SUCCESS ||
+      encode_rows(encode, &tm_do, dout, bh, n, d, L::kBlockQ) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = L::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + kRows - 1) / kRows, bh);
-  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), n, d, scale);
+  dim3 grid((n + L::kBlockQ - 1) / L::kBlockQ, bh);
+  flash_bwd_dq_kernel<DP><<<grid, L::kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), n, d, scale * kLog2e, scale);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) primitives shared by the kernels that use TMA, mbarriers
-// and wgmma (fused_conv.cu, flash_fwd.cu, flash_bwd.cu's dk/dv kernel):
+// and wgmma (fused_conv.cu, flash_fwd.cu, flash_bwd.cu):
 // shared-memory addresses, the mbarrier ring's operations, TMA tile loads,
 // ldmatrix, the 128-byte swizzle descriptor, the wgmma fences and waits,
 // and the run-time look-up of cuTensorMapEncodeTiled (the libraries are not
 // linked against libcuda). The wgmma shapes live with their kernels
-// (fused_conv.cu; flash_common.cuh for the two flash kernels).
+// (fused_conv.cu; flash_common.cuh for the flash kernels).
 
 #pragma once
 

@@ -4,16 +4,18 @@ on one card (PyTorch/CUDA port, ``edgestyle_tpu_torch``).
     mkdir -p build/torch_ext/parent
     git archive <commit> | tar -x -C build/torch_ext/parent
     python3 scripts/torch_flash_ab.py build/torch_ext/parent               # the forward
+    python3 scripts/torch_flash_ab.py build/torch_ext/parent --kernel dq   # dq backward
     python3 scripts/torch_flash_ab.py build/torch_ext/parent --kernel dkv  # dk/dv backward
 
 Builds ``<other>/edgestyle_tpu_torch/kernels/flash_fwd.cu`` (``--kernel
-fwd``) or ``flash_bwd.cu`` (``--kernel dkv``) with this checkout's nvcc flags
-and its own headers beside it, into ``build/torch_ext/ab/``; checks it and this checkout's kernel against the
-plain version with ``chip_smoke.py``'s tolerances at the timed shapes and at
-chip_smoke's checked-only shapes; then at each timed shape
-(``chip_smoke.FLASH_SHAPES`` for the forward, ``FLASH_BWD_SHAPES`` for dk/dv)
-times other, this, this, other and one library call (SDPA's forward, or
-SDPA's whole backward, dq, dk and dv together), with CUDA events around calls
+fwd``) or ``flash_bwd.cu`` (``--kernel dq`` or ``dkv``) with this checkout's
+nvcc flags and its own headers beside it, into ``build/torch_ext/ab/``;
+checks it and this checkout's kernel against the plain version with
+``chip_smoke.py``'s tolerances at the timed shapes and at chip_smoke's
+checked-only shapes; then at each timed shape (``chip_smoke.FLASH_SHAPES``
+for the forward, ``FLASH_BWD_SHAPES`` for dq and dk/dv) times other, this,
+this, other and one library call (SDPA's forward, or SDPA's whole backward,
+dq, dk and dv together), with CUDA events around calls
 queued behind a sleep kernel, as ``chip_smoke.py`` times them. To time a
 variant of a kernel, unpack the variant into a directory of its own, as the
 parent is unpacked. Prints the card's name and power limit first; exits
@@ -40,7 +42,7 @@ import chip_smoke  # noqa: E402
 from edgestyle_tpu_torch import kernels  # noqa: E402
 from edgestyle_tpu_torch.ops import flash  # noqa: E402
 
-LIBRARY = {"fwd": "flash_fwd", "dkv": "flash_bwd"}
+LIBRARY = {"fwd": "flash_fwd", "dq": "flash_bwd", "dkv": "flash_bwd"}
 
 
 def build_other(other: Path, name: str) -> ctypes.CDLL:
@@ -79,6 +81,20 @@ def other_fwd(lib):
                                     lse.data_ptr(), bh, n, d, float(scale), stream), "other")
         return out, lse
     return fwd
+
+
+def other_dq(lib):
+    """flash_bwd_dq_cuda's launch, through `lib`, on contiguous (1, BH, N, D)
+    bf16 tensors and (1, BH, N) fp32 lse and D."""
+    def dq(q, k, v, do, lse, delta, scale):
+        _, bh, n, d = q.shape
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        kernels.check(lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                       lse.data_ptr(), delta.data_ptr(), out.data_ptr(), bh, n,
+                                       d, float(scale), stream), "other")
+        return out
+    return dq
 
 
 def other_dkv(lib):
@@ -128,23 +144,28 @@ def ab_fwd(lib, gen, dev) -> list:
     return bad
 
 
-def ab_dkv(lib, gen, dev) -> list:
-    fns = {"other": other_dkv(lib), "this": flash.flash_bwd_dkv_cuda}
+def ab_bwd(kernel, lib, gen, dev) -> list:
+    """dq (`kernel` "dq") or dk/dv ("dkv") of `lib` and of this checkout."""
+    fns = {"other": (other_dq if kernel == "dq" else other_dkv)(lib),
+           "this": flash.flash_bwd_dq_cuda if kernel == "dq" else flash.flash_bwd_dkv_cuda}
     bad = []
     for bh, n, d in chip_smoke.FLASH_BWD_SHAPES + chip_smoke.FLASH_BWD_CHECK_SHAPES:
         args = chip_smoke.flash_bwd_inputs(gen, dev, bh, n, d)
-        checks = {name: chip_smoke.flash_bwd_errors(args, dq_fn=False, dkv_fn=fn)
+        checks = {name: chip_smoke.flash_bwd_errors(
+                      args, dq_fn=fn if kernel == "dq" else False,
+                      dkv_fn=fn if kernel == "dkv" else False)
                   for name, fn in fns.items()}
         txt = "; ".join(f"{name} " + ", ".join(f"{g} max_abs_err={e:.3e} (tol {t:.3e})"
                                                for g, (e, t, _) in errs.items())
                         for name, errs in checks.items())
         if (bh, n, d) in chip_smoke.FLASH_BWD_CHECK_SHAPES:
-            print(f"flash_bwd_dkv BH={bh} N={n} D={d}: {txt} (checked, not timed)", flush=True)
+            print(f"flash_bwd_{kernel} BH={bh} N={n} D={d}: {txt} (checked, not timed)",
+                  flush=True)
         else:
             times = in_turns(fns, args)
             sdpa = chip_smoke.sdpa_backward_ms(*args[:4])
-            b_ms, b_by = chip_smoke.flash_bwd_bound_ms(bh, n, d, 4)
-            print(f"flash_bwd_dkv BH={bh} N={n} D={d}: other ms {times['other']} this ms "
+            b_ms, b_by = chip_smoke.flash_bwd_bound_ms(bh, n, d, 3 if kernel == "dq" else 4)
+            print(f"flash_bwd_{kernel} BH={bh} N={n} D={d}: other ms {times['other']} this ms "
                   f"{times['this']} sdpa_backward_ms={sdpa:.4f} bound_ms={b_ms:.4f} ({b_by}); "
                   f"{txt}", flush=True)
         if not all(e <= t for e, t, _ in checks["this"].values()):
@@ -164,7 +185,10 @@ def main() -> int:
     lib = build_other(args.other.resolve(), LIBRARY[args.kernel])
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    bad = (ab_fwd if args.kernel == "fwd" else ab_dkv)(lib, gen, dev)
+    if args.kernel == "fwd":
+        bad = ab_fwd(lib, gen, dev)
+    else:
+        bad = ab_bwd(args.kernel, lib, gen, dev)
     if bad:
         chip_smoke.fail(f"this checkout's kernel disagrees with the plain version at {bad}")
     return 0
