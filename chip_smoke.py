@@ -21,6 +21,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
   4. end-to-end check: the same generation at 2 steps through the kernels
      and through the ops' plain versions, image max-abs difference under a
      stated bf16 tolerance;
+  4b. photos -> try-on (``tryon_system``): ``apps/tryon.py::TryOnSystem`` at
+     full width (BodyPoseNet at 184 px fp32, EfficientViT-L2-SAM at 512 px
+     bf16 with four decoder heads, the generation phase's pipeline and
+     params) on three 512 px photos made with numpy: the pose net's, the
+     SAM encoder's (+ one decode) and the preprocessing's times at B=1 and
+     B=2 triples, the device launches of one preprocessing, one full
+     ``__call__`` at 20 steps with the generation's launch counts against
+     the prediction, and checks: composites finite in [0, 1], skeleton
+     renders of the right shape, ``prepare_cond_batch`` against
+     per-request ``prepare_cond``, the fp32 SAM-L2 embedding and one
+     decode's mask logits on the card against the same code on the CPU
+     (TF32 off; a TF32-on run is read, not held), a skeleton render on the
+     card against the CPU's, and, since random weights give masks that
+     cover the photo and find no person, inputs with structure made here:
+     the mask algebra on 512 px head masks with a body, a head, a stray
+     disc and specks, ``largest_component`` on a serpentine and three
+     discs, the pose decode on synthetic maps of known people, each equal
+     on the card and the CPU and to its known answer; a
+     ``{"tryon_system": ...}`` line holds its numbers;
   5. training phase: the ControlLoRA trainer's entry point
      (``apps/train.py::main``) at full width, 512 px, micro-batch 2, 3
      steps of Prodigy with Min-SNR-gamma 5, from the port's random init,
@@ -89,6 +108,23 @@ GN_CANCEL_TOL = 2e-6
 # then by one ulp.
 ACT_SHARE_TOL = 1e-3
 E2E_TOL = 0.1      # [0,1] images after 2 bf16 steps through 3 ControlNets + UNet + VAE
+# Photos -> try-on phase. prepare_cond_batch against per-request
+# prepare_cond, bf16 SAM: the encoder runs on 3B photos in one call or on
+# one, and cuDNN may pick other algorithms for the two batch sizes, whose
+# fp32 sums round to other bf16 values; a mask pixel whose logit is that
+# close to 0 flips, and the mask algebra can move a few more. Per cond
+# image at most COND_SHARE_TOL of the pixels may differ (by more than
+# 1e-5 in any channel).
+COND_SHARE_TOL = 0.01
+# The fp32 SAM-L2 encoder embedding and one decode's mask logits, card
+# (TF32 off for matmuls and cuDNN) against the CPU, same params and image:
+# max-abs difference <= SAM_FP32_REL_TOL * max |CPU value|: fp32 sums in
+# another order through ~100 layers read 5.3e-6 and 4.0e-6 on the H100; the
+# limit is the card test's at MID size (tests/test_torch_preprocess_card.py).
+SAM_FP32_REL_TOL = 1e-4
+# A skeleton render on the card against the CPU's: pixels at a distance
+# within an fp32 rounding of the capsule or disc radius may differ.
+RENDER_SHARE_TOL = 1e-3
 # Backward kernels against the plain backward: max-abs error <= BWD_REL_TOL
 # * max|plain gradient|, 2 to 4 bf16 ulps of the largest gradient: the
 # kernels round P to bf16 for P^T dO (the plain version keeps it fp32, as
@@ -668,6 +704,460 @@ def e2e_phase(dev, pipe, params, gen):
         fail("end-to-end images through the kernels and the plain versions disagree")
 
 
+# ----------------------------------------------------- photos -> try-on
+def make_photos(seed: int, n: int, size: int):
+    """n (size, size, 3) photos in [0, 1], numpy: a smooth colour field (a
+    few random low-frequency waves per channel) and a bright, upright
+    subject blob, as tests/fused_golden.py makes its 32 px photos."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    photos = []
+    for _ in range(n):
+        field = np.zeros((size, size, 3))
+        for c in range(3):
+            for _ in range(3):
+                fy, fx = g.uniform(0.5, 3.0, 2)
+                field[..., c] += np.cos(2 * np.pi * (fy * y + fx * x) + g.uniform(0, 2 * np.pi))
+        field = 0.5 + field / 6.0
+        cy, cx = 0.5 + g.uniform(-0.05, 0.05, 2)
+        blob = np.exp(-((y - cy) ** 2 / (2 * 0.22 ** 2) + (x - cx) ** 2 / (2 * 0.1 ** 2)))
+        photos.append(np.clip(0.5 * field + 0.5 * blob[..., None], 0, 1).astype(np.float32))
+    return photos
+
+
+def _cond_diff_share(a, b) -> float:
+    """Share of pixels of two (H, W, 3) images that differ by more than 1e-5
+    in any channel."""
+    import numpy as np
+
+    return float(np.any(np.abs(a - b) > 1e-5, axis=-1).mean())
+
+
+def _wall(fn, reps: int):
+    """Median host seconds of `reps` calls of fn, each ending on the host
+    (fn returns host arrays), and the last result."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def tryon_system_phase(dev, pipe, params, card: str):
+    """TryOnSystem at full width from seed 0 on the generation phase's
+    pipeline and params: timings, launch counts and checks (module
+    docstring, phase 4b). Returns the kernels' launches of the photos ->
+    image call."""
+    import numpy as np
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps.tryon import TryOnSystem
+    from edgestyle_tpu_torch.data.tokenizer import empty_prompt_ids
+    from edgestyle_tpu_torch.models.efficientvit.sam import (
+        EfficientViTSam,
+        boxes_to_points,
+        preprocess_sam_image,
+    )
+    from edgestyle_tpu_torch.models.openpose import preprocess_for_openpose, render_pose
+    from edgestyle_tpu_torch.ops.morphology import component_labels
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system = TryOnSystem(seed=0, device=dev, pipe=pipe, gen_params=params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    size = system.preproc.cfg.image_size
+    photos = make_photos(0, 6, size)
+    triples = [photos[0:3], photos[3:6]]
+    rec = {"card": card, "init_s": init_s}
+
+    # module times: device ms of back-to-back calls queued behind a sleep
+    with torch.no_grad():
+        x1 = preprocess_for_openpose(torch.from_numpy(photos[0][None]).permute(0, 3, 1, 2)
+                                     .to(dev), system.pose_size)
+        x3 = torch.cat([x1, x1, x1])
+        rec["pose_net_ms_b1"] = time_ms(lambda: system.pose_net(system.pose_params, x1), 5)
+        rec["pose_net_ms_b3"] = time_ms(lambda: system.pose_net(system.pose_params, x3), 5)
+        sam, sp = system.preproc.sam, system.sam_params["sam"]
+        img = preprocess_sam_image(torch.from_numpy(photos[0][None]).permute(0, 3, 1, 2).to(dev))
+        box = torch.tensor([[100.0, 150.0, 400.0, 480.0]], device=dev) * system.preproc.prompt_scale
+        pts, lbl = boxes_to_points(box)
+        rec["sam_encoder_ms"] = time_ms(lambda: sam.encode_image(sp, img), 5)
+        rec["sam_encoder_decode_ms"] = time_ms(
+            lambda: sam.decode(sp, sam.encode_image(sp, img), pts, lbl, True), 5)
+
+    # preprocessing per triple at B=1 and B=2 (host clock, results on the host)
+    system.prepare_cond_batch([photos[0]], [photos[1]], [photos[2]])  # warm-up
+    for b in (1, 2):
+        sel = triples[:b]
+        wall, conds = _wall(lambda: system.prepare_cond_batch(
+            [t[0] for t in sel], [t[1] for t in sel], [t[2] for t in sel]), 3)
+        rec[f"preprocess_s_b{b}"] = wall
+        rec[f"preprocess_s_per_triple_b{b}"] = wall / b
+    for c in conds:
+        for k, v in c.items():
+            want = (512, 512, 3) if k.endswith("pose") else (size, size, 3)
+            if v.shape != want:
+                fail(f"tryon_system: cond {k} has shape {v.shape}, want {want}")
+            if not (np.isfinite(v).all() and v.min() >= 0 and v.max() <= 1):
+                fail(f"tryon_system: cond {k} is not finite in [0, 1]")
+    seq = [system.prepare_cond(*t) for t in triples]
+    shares = {f"{i}/{k}": _cond_diff_share(conds[i][k], seq[i][k])
+              for i in range(2) for k in seq[i]}
+    rec["batched_vs_sequential_max_share"] = max(shares.values())
+
+    # device launches and device time of one preprocessing (B=1), profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.prepare_cond_batch([photos[0]], [photos[1]], [photos[2]])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    rec["preprocess_b1_device_launches"] = sum(r[1] for r in rows)
+    rec["preprocess_b1_device_ms"] = sum(r[0] for r in rows)
+    rec["preprocess_b1_profiled_wall_s"] = prof_wall
+    rec["params"] = {"pose_net": _numel(system.pose_params),
+                     "sam_base": _numel(system.sam_params["sam"]),
+                     "sam_heads": _numel(system.sam_params["decoders"])}
+
+    # the mask algebra's connected components: sweeps (= host syncs)
+    with torch.no_grad():
+        kps = torch.full((6, 18, 2), float("nan"), device=dev)
+        out = system.preproc(system.sam_params,
+                             torch.from_numpy(np.stack(photos)).permute(0, 3, 1, 2).to(dev), kps)
+        rec["person_mask_share"] = out.person_mask.float().mean().item()
+        rec["largest_component_sweeps_6_person_masks"] = component_labels(out.person_mask)[1]
+        serp = torch.from_numpy(serpentine_and_blobs(size)[0][:1]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["largest_component_sweeps_serpentine"] = component_labels(serp)[1]
+        torch.cuda.synchronize()
+        rec["largest_component_serpentine_s"] = time.perf_counter() - t0
+
+    # fp32 SAM-L2 on the card (TF32 off, as main sets it; then once with
+    # TF32 on, read but not held) against the CPU, same params and image
+    with torch.no_grad():
+        sam32 = EfficientViTSam(system.preproc.cfg, torch.float32)
+
+        def sam32_run(d):
+            p = sp if d == dev else _to(sp, d)
+            emb = sam32.encode_image(p, img.to(d))
+            masks, _ = sam32.decode(p, emb, pts.to(d), lbl.to(d), True)
+            return emb.float().cpu(), masks.float().cpu()
+
+        ref = sam32_run(torch.device("cpu"))
+        rel = lambda out: [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(out, ref)]
+        errs = rel(sam32_run(dev))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            errs_tf32 = rel(sam32_run(dev))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rec["sam_fp32_card_vs_cpu_rel_err"] = {"embedding": errs[0], "mask_logits": errs[1]}
+    rec["sam_fp32_card_tf32_on_vs_cpu_rel_err"] = {"embedding": errs_tf32[0],
+                                                   "mask_logits": errs_tf32[1]}
+
+    # a skeleton render on the card against the CPU's
+    kp01 = torch.tensor(make_skeleton(), dtype=torch.float32)
+    r_card = render_pose(kp01.to(dev), (512, 512)).cpu()
+    r_cpu = render_pose(kp01, (512, 512))
+    rec["render_card_vs_cpu_share"] = (r_card != r_cpu).any(dim=1).float().mean().item()
+
+    # the mask algebra and the pose decode on structured inputs, card against CPU
+    t0 = time.perf_counter()
+    structure, structure_bad = structure_checks(dev, size, photos)
+    structure["s"] = time.perf_counter() - t0
+    rec["structure"] = structure
+
+    # one full photos -> image call, 20 steps, the generation's launches counted
+    ids = empty_prompt_ids()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = system(*triples[0], ids, ids, steps=GEN_STEPS)
+    torch.cuda.synchronize()
+    rec["photos_to_image_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    kernels.reset_launches()
+
+    print(f"tryon_system ({card}): init {init_s:.2f} s; BodyPoseNet {system.pose_size} px fp32 "
+          f"{rec['pose_net_ms_b1']:.4f} ms (B=1), {rec['pose_net_ms_b3']:.4f} ms (B=3); "
+          f"EfficientViT-L2-SAM {size} px bf16 encoder {rec['sam_encoder_ms']:.4f} ms, encoder + "
+          f"one box decode {rec['sam_encoder_decode_ms']:.4f} ms; preprocessing (pose, 5 SAM "
+          f"decodes, masks, renders, to the host) {rec['preprocess_s_per_triple_b1']:.4f} s per "
+          f"triple at B=1, {rec['preprocess_s_per_triple_b2']:.4f} s per triple at B=2; one B=1 "
+          f"preprocessing {rec['preprocess_b1_device_launches']} device launches, "
+          f"{rec['preprocess_b1_device_ms']:.3f} ms device time in "
+          f"{rec['preprocess_b1_profiled_wall_s']:.3f} s (profiler on); photos -> image "
+          f"({GEN_STEPS} steps) {rec['photos_to_image_s']:.3f} s; peak device memory "
+          f"{rec['peak_memory_gib']:.2f} GiB", flush=True)
+    print(f"  params: {rec['params']}; one B=1 preprocessing under the profiler by kernel "
+          f"family:", flush=True)
+    _print_families(rows, rec["preprocess_b1_device_ms"] / 1e3)
+    print(f"  largest_component: {rec['largest_component_sweeps_6_person_masks']} sweeps (one "
+          f"host sync each) for the 6 person masks (person share "
+          f"{rec['person_mask_share']:.3f}); a {size} px serpentine "
+          f"{rec['largest_component_sweeps_serpentine']} sweeps in "
+          f"{rec['largest_component_serpentine_s']:.3f} s", flush=True)
+    print(f"  checks: batched vs sequential prepare_cond, worst share of differing pixels "
+          f"{rec['batched_vs_sequential_max_share']:.2e} (tol {COND_SHARE_TOL}); fp32 SAM-L2 "
+          f"card vs CPU (TF32 off) embedding {errs[0]:.2e}, mask logits {errs[1]:.2e} of their "
+          f"max (tol {SAM_FP32_REL_TOL}; with TF32 on {errs_tf32[0]:.2e} / {errs_tf32[1]:.2e}, "
+          f"not held); skeleton render card vs CPU "
+          f"{rec['render_card_vs_cpu_share']:.2e} of pixels (tol {RENDER_SHARE_TOL}); image "
+          f"{image.shape} mean {float(image.mean()):.4f} std {float(image.std()):.4f}; generation "
+          f"launches {rec['launches']}", flush=True)
+    print(f"  structured inputs, card vs CPU in {structure['s']:.2f} s: mask algebra on three "
+          f"{size} px sets of head masks (person shares {structure['structured_person_share']}), "
+          f"largest_component on a serpentine and three discs (known answers "
+          f"{structure['largest_component_known_answers']}), pose decode on synthetic maps "
+          f"(parts found {structure['pose_decode_parts_found']}, renders differ on "
+          f"{structure['pose_decode_render_card_vs_cpu_share']:.2e}); "
+          f"{'; '.join(structure_bad) or 'all equal'}", flush=True)
+    print(json.dumps({"tryon_system": rec}), flush=True)
+
+    if structure_bad:
+        fail("tryon_system: " + "; ".join(structure_bad))
+
+    if rec["batched_vs_sequential_max_share"] > COND_SHARE_TOL:
+        worst = sorted(shares.items(), key=lambda kv: -kv[1])[:4]
+        fail(f"tryon_system: prepare_cond_batch differs from prepare_cond: {worst}")
+    if not max(errs) <= SAM_FP32_REL_TOL:
+        fail("tryon_system: the fp32 SAM-L2 on the card disagrees with the CPU")
+    if not rec["render_card_vs_cpu_share"] <= RENDER_SHARE_TOL:
+        fail("tryon_system: the skeleton render on the card disagrees with the CPU's")
+    if image.shape != (512, 512, 3) or not (np.isfinite(image).all() and image.min() >= 0
+                                           and image.max() <= 1 and image.std() > 0):
+        fail("tryon_system: the photos -> image output is not a finite [0, 1] image")
+    if rec["launches"] != GEN_LAUNCHES_PER_REQUEST:
+        fail(f"tryon_system: the generation's kernel launches differ from the counts the "
+             f"code predicts {GEN_LAUNCHES_PER_REQUEST}")
+    del system
+    return rec["launches"]
+
+
+def person_keypoints():
+    """One person's (18, 2) keypoints in the pixels of a 46 x 46 heatmap
+    (tests/test_openpose.py's synthetic person)."""
+    import numpy as np
+
+    return np.array([[23, 6], [23, 12], [18, 12], [15, 19], [13, 25], [28, 12], [31, 19],
+                     [33, 25], [20, 26], [20, 34], [20, 42], [26, 26], [26, 34], [26, 42],
+                     [21, 4], [25, 4], [19, 5], [27, 5]], np.float32)
+
+
+def make_skeleton():
+    """Two people's (18, 2) keypoints in [0, 1] (the second missing its
+    right arm), as tests/test_openpose.py's synthetic person."""
+    import numpy as np
+
+    kps = person_keypoints() / 46.0
+    two = np.stack([kps, kps * 0.8 + 0.1])
+    two[1, 2:5] = np.nan
+    return two
+
+
+def synthetic_pose_maps(people, h: int, w: int):
+    """(1, 38, h, w) PAF and (1, 19, h, w) heatmaps, numpy, of people given
+    as (18, 2) heatmap-pixel keypoints (NaN = missing), painted as
+    tests/test_openpose.py paints its person: a gaussian at each part, each
+    limb's unit vector in a 3 px corridor along it."""
+    import numpy as np
+
+    from edgestyle_tpu_torch.models.openpose import LIMB_SEQ, MAP_IDX
+
+    heat = np.zeros((19, h, w), np.float32)
+    paf = np.zeros((38, h, w), np.float32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for kps in people:
+        for part, (x, y) in enumerate(kps):
+            if not np.isnan(x):
+                heat[part] = np.maximum(heat[part],
+                                        np.exp(-((xs - x) ** 2 + (ys - y) ** 2) / 4.0))
+        for limb, (a, b) in enumerate(LIMB_SEQ):
+            (xa, ya), (xb, yb) = kps[a], kps[b]
+            if np.isnan(xa) or np.isnan(xb):
+                continue
+            n = np.hypot(xb - xa, yb - ya) + 1e-6
+            u = ((xb - xa) / n, (yb - ya) / n)
+            t = ((xs - xa) * u[0] + (ys - ya) * u[1]) / n
+            d = np.hypot(xs - (xa + t * n * u[0]), ys - (ya + t * n * u[1]))
+            m = (t >= 0) & (t <= 1) & (d < 3)
+            paf[MAP_IDX[limb][0]][m] = u[0]
+            paf[MAP_IDX[limb][1]][m] = u[1]
+    return paf[None], heat[None]
+
+
+def pose_decode_inputs():
+    """Pose maps of three 92 x 92 heatmaps with known answers, and the
+    keypoints the decode must pick (None: no person passes the filters):
+    a small person at the top left and a large one at the right (the larger
+    is picked), one person without hips (filtered out), nobody."""
+    import numpy as np
+
+    kps = person_keypoints()
+    large = kps + np.float32([46, 20])
+    small = kps * 0.8 + np.float32([2, 4])
+    no_hips = kps.copy()
+    no_hips[[8, 11]] = np.nan
+    maps = [synthetic_pose_maps(people, 92, 92) for people in ([small, large], [no_hips], [])]
+    paf, heat = (np.concatenate([m[i] for m in maps]) for i in range(2))
+    return paf, heat, [large, None, None]
+
+
+def structured_masks(seed: int, n: int, size: int):
+    """n sets of the four SAM heads' raw (size, size) bool masks, numpy,
+    with a known answer: 'subject' an elliptic body and a round head that
+    touches it, plus a stray disc apart from them; 'head' the head;
+    'clothes' the torso's box; 'agnostic' the body less a box that
+    overlaps the clothes' (so the two overlap); and salt-and-pepper specks
+    (0.2% each) in every mask. Returns (masks: name -> (n, size, size),
+    stray: (n, size, size) the stray disc, centres: (n, 2, 2) the (y, x)
+    of the body's and the head's centres)."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    out = {k: [] for k in ("subject", "agnostic", "clothes", "head")}
+    strays, centres = [], []
+    for _ in range(n):
+        cx, cy = g.uniform(0.4, 0.6), g.uniform(0.58, 0.62)
+        ax, ay = g.uniform(0.12, 0.16), g.uniform(0.26, 0.3)
+        body = ((x - cx) / ax) ** 2 + ((y - cy) / ay) ** 2 <= 1
+        hy, hr = cy - ay - 0.06, g.uniform(0.07, 0.09)
+        head = (x - cx) ** 2 + (y - hy) ** 2 <= hr ** 2
+        top = cy - 0.2
+        clothes = (abs(x - cx) <= ax - 0.02) & (y >= top) & (y <= top + 0.24)
+        hole = (abs(x - cx) <= ax - 0.02) & (y >= top + 0.04) & (y <= top + 0.28)
+        stray = (x - 0.1) ** 2 + (y - 0.1) ** 2 <= g.uniform(0.03, 0.05) ** 2
+        for k, m in (("subject", body | head | stray), ("agnostic", body & ~hole),
+                     ("clothes", clothes), ("head", head)):
+            salt, pepper = g.random((size, size)) < 2e-3, g.random((size, size)) < 2e-3
+            out[k].append((m | salt) & ~pepper)
+        strays.append(stray)
+        centres.append([[cy, cx], [hy, cx]])
+    centres = (np.array(centres) * size).astype(np.int64)
+    return {k: np.stack(v) for k, v in out.items()}, np.stack(strays), centres
+
+
+def serpentine_and_blobs(size: int):
+    """Two (size, size) bool masks, numpy, and the largest 4-connected
+    component of each: a serpentine of size / 2 tracks (one component, all
+    of it) and three discs of radii 0.06, 0.1 and 0.08 of the side (the
+    middle one)."""
+    import numpy as np
+
+    serp = np.zeros((size, size), bool)
+    serp[::2, :] = True
+    serp[1::4, -1] = True
+    serp[3::4, 0] = True
+    y, x = np.mgrid[0:size, 0:size] / size
+    discs = [(x - cx) ** 2 + (y - cy) ** 2 <= r ** 2
+             for cx, cy, r in ((0.2, 0.2, 0.06), (0.6, 0.5, 0.1), (0.25, 0.75, 0.08))]
+    return np.stack([serp, discs[0] | discs[1] | discs[2]]), np.stack([serp, discs[1]])
+
+
+def structure_checks(dev, size: int, photos) -> dict:
+    """The mask algebra and the pose decode on inputs with structure, card
+    (``dev``) against the same code on the CPU; with random weights the
+    system's own masks cover the whole photo and no person is found, so
+    these inputs are made here. Returns the readings and the failures."""
+    import numpy as np
+
+    from edgestyle_tpu_torch.apps.tryon import CANVAS, decode_pose_batch
+    from edgestyle_tpu_torch.ops.morphology import composite_gray, largest_component, mask_bbox
+    from edgestyle_tpu_torch.pipelines.preprocess import HEAD_NAMES, combine_masks
+
+    cpu = torch.device("cpu")
+    bad, rec = [], {}
+
+    # the mask algebra on three structured sets of head masks
+    raw, stray, centres = structured_masks(1, 3, size)
+    imgs = torch.from_numpy(np.stack(photos[:3])).permute(0, 3, 1, 2)
+    res = {}
+    for d in (dev, cpu):
+        m = {k: torch.from_numpy(v).to(d) for k, v in raw.items()}
+        masks = combine_masks(*(m[k] for k in HEAD_NAMES))
+        res[d] = [t.cpu() for t in masks] + [
+            mask_bbox(masks[0], 20).cpu(), mask_bbox(m["subject"], 20).cpu(),
+            composite_gray(imgs.to(d), masks[0]).cpu()]
+        if d == dev:
+            per_image = [combine_masks(*(m[k][i:i + 1] for k in HEAD_NAMES)) for i in range(3)]
+            if not all(torch.equal(torch.cat([p[j] for p in per_image]), masks[j])
+                       for j in range(4)):
+                bad.append("combine_masks on the card: the batch differs from per-image calls")
+    names = ("person", "agnostic", "clothes", "head", "person_bbox", "subject_bbox", "composite")
+    for name, a, b in zip(names, res[dev], res[cpu]):
+        # the gray background is 127 / 255, which CUDA divides as a product
+        # with the reciprocal: one fp32 ulp off the CPU's; the rest is exact
+        same = (torch.allclose(a, b, rtol=0, atol=1e-6) if name == "composite"
+                else torch.equal(a, b))
+        if not same:
+            bad.append(f"mask algebra: {name} on the card differs from the CPU's "
+                       f"({(a != b).float().mean().item():.2e} of its elements)")
+    person, agnostic, clothes, head = res[cpu][:4]
+    rec["structured_person_share"] = [round(v, 4) for v in person.float().mean((1, 2)).tolist()]
+    idx = torch.arange(3)
+    if not (0 < min(rec["structured_person_share"]) and max(rec["structured_person_share"]) < 1
+            and not (person & torch.from_numpy(stray)).any()
+            and person[idx, centres[:, 0, 0], centres[:, 0, 1]].all()
+            and person[idx, centres[:, 1, 0], centres[:, 1, 1]].all()
+            and not (agnostic & clothes).any() and agnostic.any() and clothes.any()
+            and not (head & ~person).any()):
+        bad.append("mask algebra: the person mask lost the body or the head, kept the stray "
+                   "disc, or the agnostic and clothes masks overlap")
+
+    # largest_component alone: a serpentine (all of it) and three discs (the largest)
+    masks, want = (torch.from_numpy(a) for a in serpentine_and_blobs(size))
+    got = {d: largest_component(masks.to(d)).cpu() for d in (dev, cpu)}
+    rec["largest_component_known_answers"] = bool(torch.equal(got[dev], want))
+    if not torch.equal(got[dev], got[cpu]):
+        bad.append("largest_component on the card differs from the CPU's")
+    if not torch.equal(got[dev], want):
+        bad.append("largest_component did not keep the whole serpentine or the largest disc")
+
+    # the pose decode on synthetic maps with known people
+    paf, heat, want_kps = pose_decode_inputs()
+    dec = {d: decode_pose_batch(torch.from_numpy(paf).to(d), torch.from_numpy(heat).to(d))
+           for d in (dev, cpu)}
+    (kc, sc), (kh, sh) = dec[dev], dec[cpu]
+    for i, w in enumerate(want_kps):
+        if (kc[i] is None) != (kh[i] is None) or (
+                kc[i] is not None and not np.allclose(kc[i], kh[i], atol=1e-4, equal_nan=True)):
+            bad.append(f"pose decode: image {i}'s person on the card differs from the CPU's")
+        if (kc[i] is None) != (w is None):
+            bad.append(f"pose decode: image {i}: a person was {'not ' if w is not None else ''}"
+                       "expected")
+        elif w is not None and not np.allclose(kc[i], w * CANVAS / heat.shape[2], atol=1e-3):
+            # the planted parts sit on whole heatmap pixels: every one is found there
+            bad.append(f"pose decode: image {i}'s keypoints are off the planted person")
+    rec["pose_decode_parts_found"] = [0 if k is None else int(np.isfinite(k[:, 0]).sum())
+                                      for k in kc]
+    rec["pose_decode_render_card_vs_cpu_share"] = float(
+        np.any(sc != sh, axis=-1).mean())
+    if rec["pose_decode_render_card_vs_cpu_share"] > RENDER_SHARE_TOL:
+        bad.append("pose decode: the renders on the card differ from the CPU's")
+    return rec, bad
+
+
+def _numel(tree) -> int:
+    return sum(_numel(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------- training
 TRAIN_STEPS = 3
 TRAIN_ARGV = ["--random_init", "--resolution", "512", "--train_batch_size", "2",
@@ -1034,7 +1524,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
     print(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -1059,6 +1550,7 @@ def main() -> int:
     if args.profile:
         profile_phase(dev, pipe, params, gen, args.profile)
     e2e_phase(dev, pipe, params, gen)
+    tryon_launches = tryon_system_phase(dev, pipe, params, card)
     del pipe, params
     torch.cuda.empty_cache()
 
@@ -1074,7 +1566,8 @@ def main() -> int:
     paths = {"flash_fwd": "generation", "gn_scale_shift": "generation",
              "fused_gn_silu_conv3x3": "generation", "flash_bwd_dq": "training",
              "flash_bwd_dkv": "training"}
-    by_path = {"generation": launches, "training": train_launches}
+    by_path = {"generation": launches, "tryon_system": tryon_launches,
+               "training": train_launches}
     out = []
     for name, source, replaces, shapes in records:
         # the record's bound is the largest shape's; exponentials are

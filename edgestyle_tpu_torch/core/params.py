@@ -36,7 +36,8 @@ def param(p, name: str, shape, init: str = "lecun", fp32: bool = False) -> torch
     """Read leaf ``name`` of ``p``; when recording, declare it.
 
     init: 'lecun' (normal, std 1/sqrt(fan_in), fan_in = prod(shape[1:])),
-    'zeros', 'ones', 'embed' (normal, std 1/sqrt(shape[1])) or 'normal0.01'.
+    'zeros', 'ones', 'embed' (normal, std 1/sqrt(shape[1])), 'normal' (std 1)
+    or 'normal0.01'.
     ``fp32`` leaves stay fp32 whatever the compute dtype (norm affines).
     """
     if isinstance(p, InitTree):
@@ -65,6 +66,8 @@ def _draw(shape, init: str, gen: torch.Generator, device) -> torch.Tensor:
         std = 1.0 / math.sqrt(max(1, math.prod(shape[1:])))
     elif init == "embed":
         std = 1.0 / math.sqrt(shape[1])
+    elif init == "normal":
+        std = 1.0
     elif init == "normal0.01":
         std = 0.01
     else:

@@ -147,7 +147,8 @@ def test_port_imports_nothing_of_jax():
             for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if _FORBIDDEN.search(line)]
     assert not hits, hits
-    code = ("import sys, edgestyle_tpu_torch.pipelines.tryon, edgestyle_tpu_torch.kernels; "
+    code = ("import sys, edgestyle_tpu_torch.pipelines.tryon, edgestyle_tpu_torch.kernels, "
+            "edgestyle_tpu_torch.apps.tryon; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'edgestyle_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
