@@ -55,7 +55,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``--mixed_precision no`` (micro-batch 1): an fp32 model runs its long
      attentions through the flash kernels on q, k, v and dO rounded to
      bf16 (the launches of a bf16 step) and its convs through the plain
-     version (no GN statistics or conv launch); the loss is finite.
+     version (no GN statistics or conv launch); the loss is finite;
+  8. pretrained (``pretrained_phase``): full-width diffusers/HF files in a
+     temporary directory, written by the port's own safetensors writer with
+     values drawn on the card from a seed: the SD1.5 UNet, the openpose
+     ControlNet (key manifests from tests/torch_sd15.py's modules on the
+     meta device; UNet 859,520,964 and VAE 83,653,863 parameters) and the
+     CLIP-L text tower (HF's key grammar, I64 position_ids) in fp16, the VAE
+     in fp32, a reference-layout trained set at rank 32 with conv adapters
+     (``export_reference_layout``), and SAM-L2 with four heads and the
+     body-pose net from the port's own init (upstream keys, the mappers'
+     rules run backwards); each model's write and load time; the tree of
+     ``load_pipeline_params`` against ``init_params``'s recorded on the
+     meta device (keys, shapes, norms fp32, the rest bf16, 4-D leaves
+     channels_last), the trained set, SAM, pose and spot UNet leaves read
+     back bitwise; then ``apps/tryon.py::main`` without ``--random_init``
+     on three 512 px PNG photos with every loader flag (a finite [0, 1]
+     image, the generation's launches) and ``apps/train.py::main`` from the
+     same directories (one step at micro-batch 1: a finite loss, a step's
+     launches, its two exports of the trained set read back bitwise); a
+     ``{"pretrained": ...}`` line holds its numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -1313,6 +1332,419 @@ def fp32_training_phase(dev) -> None:
     del res
 
 
+# -------------------------------------------------------------- pretrained
+# Parameter counts of the full-width diffusers SD1.5 UNet and VAE (the
+# diffusers modules' own) and of HF's CLIP-L text tower (without its
+# position_ids buffer).
+PRETRAINED_ANCHORS = {"unet": 859_520_964, "vae": 83_653_863, "text_encoder": 123_060_480}
+PRETRAINED_RANK = 32  # the trained set's adapters (linear and conv)
+# file -> (subdirectory, file name, dtype written): the public SD1.5 files
+# are fp16, the VAE fp32
+PRETRAINED_FILES = {
+    "unet": ("pretrained/unet", "diffusion_pytorch_model.safetensors", torch.float16),
+    "text_encoder": ("pretrained/text_encoder", "model.safetensors", torch.float16),
+    "vae": ("vae", "diffusion_pytorch_model.safetensors", torch.float32),
+    "openpose": ("openpose", "diffusion_pytorch_model.safetensors", torch.float16),
+}
+
+
+def clip_text_manifest(layers=12, width=768, positions=77, vocab=49408, mlp=3072):
+    """Key -> shape of HF's CLIPTextModel at clip-vit-large-patch14's text
+    width, from HF's key grammar, with the I64 position_ids buffer."""
+    m = {"text_model.embeddings.token_embedding.weight": (vocab, width),
+         "text_model.embeddings.position_embedding.weight": (positions, width),
+         "text_model.embeddings.position_ids": (1, positions),
+         "text_model.final_layer_norm.weight": (width,),
+         "text_model.final_layer_norm.bias": (width,)}
+    for i in range(layers):
+        p = f"text_model.encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            m[f"{p}.self_attn.{proj}.weight"], m[f"{p}.self_attn.{proj}.bias"] = \
+                (width, width), (width,)
+        for ln in ("layer_norm1", "layer_norm2"):
+            m[f"{p}.{ln}.weight"], m[f"{p}.{ln}.bias"] = (width,), (width,)
+        m[f"{p}.mlp.fc1.weight"], m[f"{p}.mlp.fc1.bias"] = (mlp, width), (mlp,)
+        m[f"{p}.mlp.fc2.weight"], m[f"{p}.mlp.fc2.bias"] = (width, mlp), (width,)
+    return m
+
+
+def sd15_manifests():
+    """Key -> shape of the full-width diffusers UNet2DConditionModel, openpose
+    ControlNetModel and AutoencoderKL: tests/torch_sd15.py's modules (pure
+    torch, written from the diffusers spec, not from either package's
+    mappers) built on the meta device."""
+    from tests import torch_sd15
+
+    with torch.device("meta"):
+        mods = {"unet": torch_sd15.UNet2DConditionModel(),
+                "openpose": torch_sd15.ControlNetModel(),
+                "vae": torch_sd15.AutoencoderKL()}
+    return {k: {n: tuple(v.shape) for n, v in m.state_dict().items()} for k, m in mods.items()}
+
+
+def synth_on_card(manifest, gen, dtype):
+    """Values for a manifest, drawn on the generator's device in sorted key
+    order with tests/golden_mirror.py::synth_state_dict's scales: N(0,
+    1/fan_in) for >= 2-D, 1 + 0.25 N(0, 1) for 1-D; position_ids 0..n-1."""
+    out = {}
+    for k in sorted(manifest):
+        shape = manifest[k]
+        if k.endswith("position_ids"):
+            out[k] = torch.arange(shape[-1], device=gen.device).reshape(shape)
+            continue
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        x = x / math.sqrt(math.prod(shape[1:])) if len(shape) >= 2 else 1.0 + 0.25 * x
+        out[k] = x.to(dtype)
+    return out
+
+
+def _finite_strings(pattern: str):
+    """Every string a regex of literals, character classes, groups and
+    alternations matches (a mapper rule's torch keys)."""
+    from re import _constants as C, _parser as P
+
+    def seq(items):
+        outs = [""]
+        for op, av in items:
+            outs = [a + b for a in outs for b in one(op, av)]
+        return outs
+
+    def one(op, av):
+        if op is C.LITERAL:
+            return [chr(av)]
+        if op is C.SUBPATTERN:
+            return seq(av[3])
+        if op is C.BRANCH:
+            return [x for branch in av[1] for x in seq(branch)]
+        if op is C.IN:
+            out = []
+            for o, a in av:
+                if o is C.LITERAL:
+                    out.append(chr(a))
+                elif o is C.RANGE:
+                    out += [chr(c) for c in range(a[0], a[1] + 1)]
+                elif o is C.CATEGORY and a is C.CATEGORY_DIGIT:
+                    out += list("0123456789")
+                else:
+                    raise ValueError(f"{pattern}: class item {o}")
+            return out
+        raise ValueError(f"{pattern}: not a finite pattern ({op})")
+
+    return seq(P.parse(pattern))
+
+
+def upstream_state_dict(tree, rules, rename=lambda path: path):
+    """The upstream-keyed state dict that a port mapper (its KeyMapper
+    ``rules``, then ``rename`` for the renaming it does after them) maps
+    onto ``tree``: every key a rule matches, mapped alone, names the leaf it
+    fills. SAM's four point-embedding rows and its (1, 256) embeddings,
+    which the mapper reshapes, are split and reshaped back."""
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.core.porting import KeyMapper
+
+    mapper = KeyMapper(rules)
+    names = {}
+    for pat, template, _ in mapper.rules:
+        if template is not None:
+            for key in _finite_strings(pat.pattern):
+                names.setdefault(rename(mapper.match(key)[0]), []).append(key)
+    out = {}
+    for path, v in ((".".join(k), v) for k, v in flatten(tree).items()):
+        keys = names.get(path, [])
+        if path == "prompt_encoder.point_embeddings":
+            out.update({f"{path}.{i}.weight": v[i:i + 1] for i in range(v.shape[0])})
+        elif len(keys) != 1:
+            fail(f"pretrained: no single upstream key for {path}: {keys[:3]}")
+        elif path.endswith(("not_a_point_embed", "no_mask_embed")):
+            out[keys[0]] = v[None]
+        else:
+            out[keys[0]] = v
+    return out
+
+
+def _sam_rename(path):
+    pe = "prompt_encoder.point_embeddings"
+    return pe if path.startswith(pe + ".") else path
+
+
+def _pose_rename(path):
+    return path[:-len(".weight")] + ".kernel" if path.endswith(".weight") else path
+
+
+def _trees_equal(a, b, cast=None) -> bool:
+    """Same keys and bitwise-equal values (b cast by ``cast(path, leaf)``
+    first when given)."""
+    from edgestyle_tpu_torch.core.params import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k], cast(k, v) if cast else v) for k, v in fb.items())
+
+
+def pretrained_phase(dev, card: str):
+    """Full-width diffusers/HF files written by the port's own writer and
+    read back through the port's loaders and its two entry points (module
+    docstring, phase 8). Returns the kernels' launches of the try-on CLI's
+    and the trainer's runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import train, tryon
+    from edgestyle_tpu_torch.core import pretrained
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+    from edgestyle_tpu_torch.core.porting import load_state_dict, tree_from_flat
+    from edgestyle_tpu_torch.core.safetensors import save_file
+    from edgestyle_tpu_torch.models.efficientvit.sam import SAM_L2, _sam_rules
+    from edgestyle_tpu_torch.models.openpose import (
+        BodyPoseNet,
+        _bodypose_rules,
+        port_bodypose_state_dict,
+    )
+    from edgestyle_tpu_torch.models.unet import controllora_params
+    from edgestyle_tpu_torch.pipelines.preprocess import HEAD_NAMES, TryOnPreprocessor
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
+    from edgestyle_tpu_torch.training import checkpoint
+    from edgestyle_tpu_torch.training.train_step import init_trainable
+
+    rec = {"card": card, "models": {}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+
+    # 1. manifests, against the parameter-count anchors
+    manifests = {**sd15_manifests(), "text_encoder": clip_text_manifest()}
+    counts = {k: sum(math.prod(s) for n, s in m.items() if not n.endswith("position_ids"))
+              for k, m in manifests.items()}
+    rec["params"] = counts
+    for k, want in PRETRAINED_ANCHORS.items():
+        if counts[k] != want:
+            fail(f"pretrained: the {k} manifest has {counts[k]:,} parameters, not {want:,}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrained_") as root:
+        path = lambda *p: os.path.join(root, *p)  # noqa: E731
+
+        def write(name, tensors, file_path):
+            os.makedirs(os.path.dirname(file_path), exist_ok=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = save_file(tensors, file_path)
+            dt = time.perf_counter() - t0
+            m = rec["models"].setdefault(name, {"bytes": 0, "write_s": 0.0})
+            m["bytes"] += n
+            m["write_s"] += dt
+            m["write_gb_s"] = m["bytes"] / m["write_s"] / 1e9
+
+        # 2. the files
+        spot = {}
+        for name, (sub_dir, fname, dtype) in PRETRAINED_FILES.items():
+            sd = synth_on_card(manifests[name], gen, dtype)
+            if name == "unet":
+                spot = {k: sd[k] for k in ("conv_in.weight", "conv_in.bias",
+                                           "conv_norm_out.weight")}
+            write(name, sd, path(sub_dir, fname))
+            del sd
+        pipe = EdgeStylePipeline(PipelineConfig(), device=dev)
+        recorded = pipe.record_params()
+        tr = init_trainable(pipe, gen, recorded["unet"], PRETRAINED_RANK, lora_conv_rank=1)
+        tr = unflatten({k: (0.1 * torch.randn(v.shape, generator=gen, device=dev)).contiguous(
+            memory_format=torch.channels_last if v.ndim == 4 else torch.contiguous_format)
+            for k, v in flatten(tr).items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pretrained.export_reference_layout(
+            path("trained"), tr, {"kernel": spot["conv_in.weight"], "bias": spot["conv_in.bias"]})
+        rec["models"]["trained"] = {"bytes": sum(
+            os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path("trained"))
+            for f in fs), "write_s": time.perf_counter() - t0}
+        rec["models"]["trained"]["write_gb_s"] = (rec["models"]["trained"]["bytes"]
+                                                  / rec["models"]["trained"]["write_s"] / 1e9)
+        pre = TryOnPreprocessor(SAM_L2, dtype=torch.bfloat16)
+        sam_init = pre.init_params(gen)
+        heads = {n: pre.sam.init_params(gen)["mask_decoder"] for n in HEAD_NAMES}
+        sam_rules = _sam_rules(SAM_L2)
+        write("sam_l2", upstream_state_dict(sam_init["sam"], sam_rules, _sam_rename),
+              path("sam", "l2.safetensors"))
+        for n, dec in heads.items():
+            full = upstream_state_dict({"mask_decoder": dec}, sam_rules, _sam_rename)
+            write("sam_l2", {k[len("mask_decoder."):]: v for k, v in full.items()},
+                  path("sam", f"{n}.safetensors"))
+        pose_init = BodyPoseNet().init_params(gen)
+        write("bodypose", upstream_state_dict(pose_init, _bodypose_rules(), _pose_rename),
+              path("bodypose.safetensors"))
+        rec["bytes_written"] = sum(m["bytes"] for m in rec["models"].values())
+
+        # 3. each loader alone, then the whole tree against init_params's
+        def timed_load(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            m = rec["models"][name]
+            m["load_s"] = time.perf_counter() - t0
+            m["load_gb_s"] = m["bytes"] / m["load_s"] / 1e9
+            return out
+
+        dt = pipe.dtype
+        timed_load("unet", lambda: pretrained.load_unet_params(path("pretrained/unet"), dev, dt))
+        timed_load("text_encoder", lambda: pretrained.load_clip_text_params(
+            path("pretrained/text_encoder"), 12, dev, dt))
+        timed_load("vae", lambda: pretrained.load_vae_params(path("vae"), dev, dt))
+        timed_load("openpose", lambda: pretrained.load_controlnet_params(path("openpose"), dev, dt))
+        back = timed_load("trained", lambda: pretrained.load_edgestyle_pretrained_dir(
+            path("trained"), dev))
+        sam_back = timed_load("sam_l2", lambda: tryon._load_sam_params(
+            pre, path("sam", "l2.safetensors"),
+            {n: path("sam", f"{n}.safetensors") for n in HEAD_NAMES}, dev))
+        pose_back = timed_load("bodypose", lambda: tree_from_flat(port_bodypose_state_dict(
+            load_state_dict(path("bodypose.safetensors"), dev)), dev))
+        if not _trees_equal(back, tr):
+            fail("pretrained: the trained set does not read back bitwise")
+        if not (_trees_equal(sam_back, {"sam": sam_init["sam"], "decoders": heads},
+                             lambda k, v: v.float())
+                and _trees_equal(pose_back, pose_init)):
+            fail("pretrained: the SAM-L2 or body-pose file does not read back equal to the "
+                 "port's init")
+        del back, sam_back, pose_back, sam_init, heads, pose_init
+
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = pretrained.load_pipeline_params(
+            path("pretrained"), path("vae"), path("openpose"), path("trained"), pipe=pipe)
+        torch.cuda.synchronize()
+        rec["pipeline_load_s"] = time.perf_counter() - t0
+        rec["device_memory_after_load_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        cn_rec = recorded["controlnet"]
+        heads_rec = {k: v for k, v in cn_rec["static"].items() if k.startswith("controlnet_")}
+        for g in sorted({g.params_key for g in pipe.mcn.groups if g.kind == "lora"}):
+            cn_rec[g] = controllora_params(recorded["unet"], {}, heads_rec)
+        want = {}
+
+        def walk(node, prefix=()):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, prefix + (k,))
+                else:
+                    want[prefix + (k,)] = (tuple(v.shape), node.rules[k][1])
+
+        walk(recorded)
+        got = flatten(params)
+        if got.keys() != want.keys():
+            fail(f"pretrained: the loaded tree's keys differ from init_params's: "
+                 f"{sorted(set(got) ^ set(want))[:6]}")
+        bad = [k for k, (shape, fp32) in want.items()
+               if tuple(got[k].shape) != shape
+               or got[k].dtype != (torch.float32 if fp32 else dt)
+               or not got[k].is_contiguous(memory_format=torch.channels_last
+                                           if got[k].ndim == 4 else torch.contiguous_format)]
+        if bad:
+            fail(f"pretrained: {len(bad)} leaves break the shape, dtype or layout rules: "
+                 f"{bad[:4]}")
+        cn = params["controlnet"]
+        cast = lambda k, v: v.to(torch.float32 if "normalization" in k[-2] else dt)  # noqa: E731
+        checks = {
+            "unet conv_in is the file's, cast": torch.equal(
+                params["unet"]["conv_in"]["kernel"], spot["conv_in.weight"].to(dt)),
+            "unet conv_norm_out stays fp32": torch.equal(
+                params["unet"]["conv_norm_out"]["scale"], spot["conv_norm_out.weight"].float()),
+            "fusion is the trained set's, cast": _trees_equal(cn["fusion"], tr["fusion"], cast),
+            "heads are the trained set's, cast": all(_trees_equal(
+                {k: v for k, v in cn[f"lora_{i}"].items() if k.startswith("controlnet_")
+                 and k != "controlnet_cond_embedding"}, tr[f"heads_{i}"], cast) for i in (0, 1)),
+            "branches share the static cond embedding": all(
+                cn[f"lora_{i}"]["controlnet_cond_embedding"] is
+                cn["static"]["controlnet_cond_embedding"] for i in (0, 1)),
+        }
+        if not all(checks.values()):
+            fail(f"pretrained: {[k for k, ok in checks.items() if not ok]}")
+        rec["loaded_leaves"] = len(got)
+        del params, got, pipe, recorded, tr, spot
+        torch.cuda.empty_cache()
+
+        # 4. photos -> try-on, the CLI without --random_init
+        photos = []
+        for i, ph in enumerate(make_photos(3, 3, 512)):
+            photos.append(path(f"photo{i}.png"))
+            Image.fromarray((ph * 255).astype(np.uint8)).save(photos[-1])
+        argv = ["--subject", photos[0], "--clothes1", photos[1], "--clothes2", photos[2],
+                "--pretrained_model", path("pretrained"), "--vae", path("vae"),
+                "--openpose_controlnet", path("openpose"),
+                "--edgestyle_checkpoint", path("trained"),
+                "--sam_checkpoint", path("sam", "l2.safetensors"),
+                "--bodypose_checkpoint", path("bodypose.safetensors"),
+                "--out", path("result.png")]
+        for n in HEAD_NAMES:
+            argv += [f"--sam_{n}", path("sam", f"{n}.safetensors")]
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = tryon.main(argv, device=dev)
+        torch.cuda.synchronize()
+        rec["tryon_cli_s"] = time.perf_counter() - t0
+        tryon_launches = dict(kernels.LAUNCHES)
+        rec["tryon_launches"] = tryon_launches
+        rec["image"] = {"shape": list(image.shape), "min": float(image.min()),
+                        "max": float(image.max()), "mean": float(image.mean()),
+                        "std": float(image.std())}
+        if image.shape != (512, 512, 3) or not (np.isfinite(image).all() and image.min() >= 0
+                                               and image.max() <= 1):
+            fail(f"pretrained: the try-on CLI's image is not a finite [0, 1] 512 px image: "
+                 f"{rec['image']}")
+        if tryon_launches != GEN_LAUNCHES_PER_REQUEST:
+            fail(f"pretrained: the try-on CLI's kernel launches {tryon_launches} differ from "
+                 f"the generation's {GEN_LAUNCHES_PER_REQUEST}")
+        torch.cuda.empty_cache()
+
+        # 5. one training step from the same directories
+        argv = ["--pretrained_model", path("pretrained"), "--vae", path("vae"),
+                "--openpose_controlnet", path("openpose"), "--resolution", "512",
+                "--train_batch_size", "1", "--gradient_accumulation_steps", "1",
+                "--max_train_steps", "1", "--mixed_precision", "bf16", "--logging_steps", "1",
+                "--seed", "0", "--output_dir", path("train_out")]
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train.main(argv, device=dev)
+        torch.cuda.synchronize()
+        rec["train_cli_s"] = time.perf_counter() - t0
+        train_launches = dict(kernels.LAUNCHES)
+        rec["train_launches"] = train_launches
+        rec["train_loss"] = [r["loss"] for r in res["log"]]
+        rec["train_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        trained = res["state"]["trainable"]
+        if not (_trees_equal(pretrained.load_edgestyle_pretrained_dir(
+                path("train_out", "controlnet"), dev), trained)
+                and _trees_equal(checkpoint.import_safetensors(
+                    path("train_out", "edgestyle_trainable.safetensors"), dev), trained)):
+            fail("pretrained: the trainer's exported trained set does not read back bitwise")
+        del res, trained
+        shutil.rmtree(path("train_out"), ignore_errors=True)
+        if len(rec["train_loss"]) != 1 or not math.isfinite(rec["train_loss"][0]):
+            fail(f"pretrained: the training step's loss is not one finite value: "
+                 f"{rec['train_loss']}")
+        if train_launches != TRAIN_LAUNCHES_PER_STEP:
+            fail(f"pretrained: the training step's launches {train_launches} differ from "
+                 f"{TRAIN_LAUNCHES_PER_STEP}")
+
+    m = rec["models"]
+    print(f"pretrained ({card}): wrote {rec['bytes_written'] / 1e9:.3f} GB; "
+          + "; ".join(f"{k} {v['bytes'] / 1e9:.3f} GB written {v['write_s']:.3f} s "
+                      f"({v['write_gb_s']:.2f} GB/s), loaded {v['load_s']:.3f} s "
+                      f"({v['load_gb_s']:.2f} GB/s)" for k, v in m.items())
+          + f"; load_pipeline_params {rec['pipeline_load_s']:.3f} s, "
+            f"{rec['loaded_leaves']} leaves, device memory after it "
+            f"{rec['device_memory_after_load_gib']:.2f} GiB; try-on CLI "
+            f"{rec['tryon_cli_s']:.2f} s (image mean {rec['image']['mean']:.4f} std "
+            f"{rec['image']['std']:.4f}, launches {rec['tryon_launches']}); trainer "
+            f"{rec['train_cli_s']:.2f} s, loss {rec['train_loss']}, launches "
+            f"{rec['train_launches']}", flush=True)
+    print(json.dumps({"pretrained": rec}), flush=True)
+    return tryon_launches, train_launches
+
+
 def _live_trainables(state, gen):
     """A copy of the trainables with the zero-init ControlNet heads and LoRA
     ups given small random values, so that every trunk gradient is live."""
@@ -1560,6 +1992,8 @@ def main() -> int:
         profile_train_step(dev, built, args.profile)
     del built
     fp32_training_phase(dev)
+    torch.cuda.empty_cache()
+    pretrained_tryon_launches, pretrained_train_launches = pretrained_phase(dev, card)
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
@@ -1567,7 +2001,8 @@ def main() -> int:
              "fused_gn_silu_conv3x3": "generation", "flash_bwd_dq": "training",
              "flash_bwd_dkv": "training"}
     by_path = {"generation": launches, "tryon_system": tryon_launches,
-               "training": train_launches}
+               "training": train_launches, "pretrained_tryon": pretrained_tryon_launches,
+               "pretrained_training": pretrained_train_launches}
     out = []
     for name, source, replaces, shapes in records:
         # the record's bound is the largest shape's; exponentials are

@@ -1,15 +1,21 @@
 """The ControlLoRA trainer's entry point, on one card.
 
 Counterpart of edgestyle_tpu/apps/train.py, with its flag set and defaults
-(:func:`parse_args`). Ported: ``--random_init`` weights from ``--seed``, the
-synthetic loader, the step loop with its JSON log lines, checkpointing with
-rotation and resume, and the final checkpoint. Not ported yet, and refused
-with ``NotImplementedError`` naming their ROADMAP item: a dataset
-(``--dataset_dir``), the pretrained weights, validation, background
+(:func:`parse_args`). Ported: the frozen weights from diffusers/HF
+directories (``--pretrained_model`` with ``unet/`` and ``text_encoder/``,
+``--vae``, ``--openpose_controlnet``; core/pretrained.py) or, with
+``--random_init``, from ``--seed``; the synthetic loader, the step loop
+with its JSON log lines, checkpointing with rotation and resume, the
+final checkpoint and the trained set's two exports
+(``edgestyle_trainable.safetensors`` and the reference's ``controlnet/``
+layout). Not ported yet, and refused with ``NotImplementedError`` naming
+their ROADMAP item: a dataset (``--dataset_dir``), validation, background
 prefetch (``--dataloader_num_workers``) and more than one card.
 
     python -m edgestyle_tpu_torch.apps.train --random_init --resolution 512 \\
         --train_batch_size 2 --gradient_accumulation_steps 1 --max_train_steps 3
+    python -m edgestyle_tpu_torch.apps.train --pretrained_model rv51 \\
+        --vae sd-vae-ft-mse --openpose_controlnet openpose --max_train_steps 3
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 
 ROADMAP_TRAINING = "ROADMAP.md Queue 1 item 13"
-ROADMAP_LOADERS = "ROADMAP.md Queue 1 item 1b"
+WEIGHT_DIRS = ("pretrained_model", "vae", "openpose_controlnet")
 
 
 def _ref_bool(v: str) -> bool:
@@ -116,14 +122,14 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Refuse what this slice does not port yet."""
+    """Refuse what this slice does not port yet, and a run with no weights."""
     if args.dataset_dir:
         raise NotImplementedError(f"--dataset_dir: the dataset and loader are not ported "
                                   f"yet ({ROADMAP_TRAINING})")
-    if not args.random_init:
-        raise NotImplementedError(f"pretrained weights (--pretrained_model, --vae, "
-                                  f"--openpose_controlnet) need the checkpoint loaders "
-                                  f"({ROADMAP_LOADERS}); pass --random_init")
+    missing = [f"--{n}" for n in WEIGHT_DIRS if not getattr(args, n)]
+    if not args.random_init and missing:
+        raise ValueError(f"without --random_init the weights come from --pretrained_model, "
+                         f"--vae and --openpose_controlnet; missing {', '.join(missing)}")
     if args.validation_steps:
         raise NotImplementedError(f"--validation_steps: validation is not ported yet "
                                   f"({ROADMAP_TRAINING})")
@@ -137,13 +143,16 @@ def check_supported(args) -> None:
 
 def build(args, device="cuda", base_cfg=None):
     """The pipeline, the frozen weights, the train config and the initial
-    train state, from ``--seed``. ``base_cfg``: the model configuration
-    (default full-width SD1.5); its dtype and VAE sample size come from the
-    flags. Returns (pipe, frozen, tcfg, state, max_train_steps)."""
+    train state: the weights from the three directories or, with
+    ``--random_init``, from ``--seed``; the trainables from ``--seed``.
+    ``base_cfg``: the model configuration (default full-width SD1.5); its
+    dtype and VAE sample size come from the flags. Returns (pipe, frozen,
+    tcfg, state, max_train_steps)."""
     import dataclasses
 
     from edgestyle_tpu_torch.core.device import make_generator
     from edgestyle_tpu_torch.core.params import flatten, unflatten
+    from edgestyle_tpu_torch.core.pretrained import load_pipeline_params
     from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
     from edgestyle_tpu_torch.training.train_step import (
         TrainConfig,
@@ -158,7 +167,12 @@ def build(args, device="cuda", base_cfg=None):
         base, dtype=dtype, vae=dataclasses.replace(base.vae, sample_size=args.resolution)),
         device=device)
     gen = make_generator(args.seed, pipe.device)
-    params = pipe.init_params(gen)
+    if args.random_init:
+        params = pipe.init_params(gen)
+    else:
+        params = load_pipeline_params(args.pretrained_model, args.vae, args.openpose_controlnet,
+                                      lora_rank=args.controllora_linear_rank, pipe=pipe,
+                                      generator=gen)
     frozen = {"vae": params["vae"], "clip": params["clip"], "unet": params["unet"],
               "static": params["controlnet"]["static"]}
     if dtype == "bfloat16":
@@ -228,7 +242,12 @@ def main(argv=None, device="cuda", base_cfg=None):
     weights it trained against and the logged metrics. ``device`` and
     ``base_cfg`` as :func:`build` takes them."""
     from edgestyle_tpu_torch.core.device import make_generator
-    from edgestyle_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from edgestyle_tpu_torch.core.pretrained import export_reference_layout
+    from edgestyle_tpu_torch.training.checkpoint import (
+        export_safetensors,
+        load_checkpoint,
+        save_checkpoint,
+    )
     from edgestyle_tpu_torch.training.train_step import make_train_step, sample_draws
 
     args = parse_args(argv)
@@ -256,6 +275,13 @@ def main(argv=None, device="cuda", base_cfg=None):
         if args.checkpointing_steps and gstep % args.checkpointing_steps == 0:
             save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
     save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
+    # the deployable artifacts: the JAX package's flat file, and the
+    # reference's layout (train...py:1373-1382), which the reference's torch
+    # stack reads; --edgestyle_checkpoint of the try-on takes either
+    export_safetensors(os.path.join(args.output_dir, "edgestyle_trainable.safetensors"),
+                       state["trainable"])
+    export_reference_layout(os.path.join(args.output_dir, "controlnet"), state["trainable"],
+                            unet_conv_in=frozen["unet"]["conv_in"])
     print(json.dumps({"done": True, "final_step": state["step"]}), flush=True)
     return {"state": state, "frozen": frozen, "log": log}
 

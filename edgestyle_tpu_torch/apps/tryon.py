@@ -6,13 +6,22 @@ pipeline flow): OpenPose keypoints -> skeleton renders -> SAM masks (one
 image encoding per photo, the base decoder and four heads) -> gray
 composites -> the 6-branch generation.
 
-Ported: random-init weights, the pose and SAM checkpoints (``.pt``/``.pth``
-state dicts: full, ``{"state_dict"}``-wrapped or decoder-only heads), the
-tokenizer, ``--fused`` and the exact UniPC generation. Every flag that asks
-for something not ported raises ``NotImplementedError`` naming its ROADMAP
-item (:func:`refuse_unported`); none is ignored.
+Ported: random-init weights; the pose and SAM checkpoints (``.safetensors``
+or ``.pt``/``.pth`` state dicts: full, ``{"state_dict"}``-wrapped or
+decoder-only heads); the generation's weights from diffusers/HF
+directories (``--pretrained_model`` with ``unet/`` and ``text_encoder/``,
+``--vae``, ``--openpose_controlnet``) and the trained set
+(``--edgestyle_checkpoint``: a reference-layout directory or an exported
+file; core/pretrained.py); the tokenizer, ``--fused`` and the exact UniPC
+generation. Every flag that asks for something not ported raises
+``NotImplementedError`` naming its ROADMAP item (:func:`refuse_unported`);
+with ``--random_init`` the weight flags are ignored, as in the JAX app.
 
     python -m edgestyle_tpu_torch.apps.tryon --random_init \\
+        --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
+    python -m edgestyle_tpu_torch.apps.tryon --pretrained_model rv51 --vae sd-vae-ft-mse \\
+        --openpose_controlnet openpose --edgestyle_checkpoint trained \\
+        --sam_checkpoint l2.safetensors --bodypose_checkpoint body_pose.safetensors \\
         --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
 """
 
@@ -26,6 +35,7 @@ import torch
 
 from edgestyle_tpu_torch.core.device import DeviceLike, make_generator, resolve_device
 from edgestyle_tpu_torch.core.porting import load_state_dict, tree_from_flat
+from edgestyle_tpu_torch.core.pretrained import load_pipeline_params
 from edgestyle_tpu_torch.models.efficientvit.sam import SAM_L2, port_sam_state_dict
 from edgestyle_tpu_torch.models.openpose import (
     BodyPoseNet,
@@ -42,7 +52,6 @@ from edgestyle_tpu_torch.models.openpose import (
 from edgestyle_tpu_torch.pipelines.preprocess import HEAD_NAMES, TryOnPreprocessor, copy_tree
 from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
 
-ROADMAP_LOADERS = "ROADMAP.md Queue 1 item 1b"
 ROADMAP_KNOBS = "ROADMAP.md Queue 1 item 12"
 ROADMAP_MODELS = "ROADMAP.md Queue 1 item 14"
 ROADMAP_APPS = "ROADMAP.md Queue 1 item 15"
@@ -64,7 +73,7 @@ def parse_args(argv=None):
     p.add_argument("--edgestyle_checkpoint", "--controlnet_model_name_or_path", type=str,
                    default=None, dest="edgestyle_checkpoint")
     p.add_argument("--sam_checkpoint", type=str, default=None,
-                   help="base EfficientViT-SAM l2 state dict (.pt/.pth)")
+                   help="base EfficientViT-SAM l2 state dict (.safetensors/.pt/.pth)")
     p.add_argument("--sam_subject", type=str, default=None,
                    help="finetuned subject-head state dict (full or decoder-only)")
     p.add_argument("--sam_agnostic", type=str, default=None)
@@ -122,13 +131,6 @@ def refuse_unported(args) -> None:
     refused = [(flag, ROADMAP_KNOBS) for flag, asked in knobs.items() if asked]
     refused += [(f"--{n}", ROADMAP_MODELS) for n in ("lcm_lora", "clip_model") if get(n)]
     refused += [("--exported_dir", ROADMAP_APPS)] if get("exported_dir") else []
-    refused += [(f"--{n}", ROADMAP_LOADERS) for n in
-                ("pretrained_model", "vae", "openpose_controlnet", "edgestyle_checkpoint")
-                if get(n)]
-    refused += [(f"--{n} (.safetensors)", ROADMAP_LOADERS)
-                for n in ("sam_checkpoint", "sam_subject", "sam_agnostic", "sam_clothes",
-                          "sam_head", "bodypose_checkpoint")
-                if str(get(n) or "").endswith(".safetensors")]
     if refused:
         flag, item = refused[0]
         raise NotImplementedError(f"{flag} is not ported yet ({item})")
@@ -197,7 +199,10 @@ def decode_pose_batch(paf: torch.Tensor,
 
 class TryOnSystem:
     """Pose, segmentation and generation together; params from a seed
-    (``random_init``) or from the pose and SAM checkpoints in ``args``.
+    (``random_init``) or from the checkpoints in ``args``: the pose and SAM
+    weights are required, the generation's come from ``--pretrained_model``
+    (with ``--vae``, ``--openpose_controlnet`` and an optional
+    ``--edgestyle_checkpoint``) when it is given.
 
     ``pipe`` and ``gen_params`` may hand in a generation pipeline and its
     params (e.g. one already built); by default a full-width bf16 SD1.5
@@ -229,10 +234,17 @@ class TryOnSystem:
                     and getattr(args, "sam_checkpoint", None)):
                 raise ValueError("without --random_init, --bodypose_checkpoint and "
                                  "--sam_checkpoint are required")
-            self.pose_params = tree_from_flat(
-                port_bodypose_state_dict(load_state_dict(args.bodypose_checkpoint)), self.device)
+            self.pose_params = tree_from_flat(port_bodypose_state_dict(
+                load_state_dict(args.bodypose_checkpoint, self.device)), self.device)
             self.sam_params = _load_sam_params(self.preproc, args.sam_checkpoint,
                                                sam_head_paths(args), self.device)
+            # generation weights are optional: extracting conditioning
+            # images needs only the pose net and SAM
+            if self.gen_params is None and getattr(args, "pretrained_model", None):
+                self.gen_params = load_pipeline_params(
+                    args.pretrained_model, args.vae, args.openpose_controlnet,
+                    edgestyle_checkpoint=args.edgestyle_checkpoint, pipe=self.pipe,
+                    generator=make_generator(seed, self.device))
 
     # -------------------------------------------------------------- pose
     def detect_pose(self, img01: np.ndarray) -> Tuple[Optional[np.ndarray], np.ndarray]:
@@ -285,8 +297,8 @@ class TryOnSystem:
 
     def _check_gen_params(self) -> None:
         if self.gen_params is None:
-            raise ValueError(f"no generation weights: pass --random_init (pretrained weights "
-                             f"wait for {ROADMAP_LOADERS})")
+            raise ValueError("no generation weights: pass --random_init, or --pretrained_model "
+                             "with --vae and --openpose_controlnet")
 
     def prepare_cond(self, subject01, clothes1_01, clothes2_01) -> Dict[str, np.ndarray]:
         """Photos -> the six-image cond dict (pose and SAM extraction)."""
@@ -332,14 +344,14 @@ def _load_sam_params(preproc: TryOnPreprocessor, base_path: str, head_paths=None
     or its decoder's alone (segmenter_training_*.py:463); a head without a
     checkpoint copies the base decoder."""
     cfg = preproc.cfg
-    base = tree_from_flat(port_sam_state_dict(load_state_dict(base_path), cfg), device)
+    base = tree_from_flat(port_sam_state_dict(load_state_dict(base_path, device), cfg), device)
     decoders = {}
     for name in HEAD_NAMES:
         path = (head_paths or {}).get(name)
         if not path:
             decoders[name] = copy_tree(base["mask_decoder"])
             continue
-        sd = load_state_dict(path)
+        sd = load_state_dict(path, device)
         if not any(k.startswith(("image_encoder.", "mask_decoder.")) for k in sd):
             sd = {"mask_decoder." + k: v for k, v in sd.items()}  # decoder-only
         decoders[name] = tree_from_flat(port_sam_state_dict(sd, cfg), device)["mask_decoder"]

@@ -32,10 +32,13 @@ same keys, with each leaf re-laid out for PyTorch:
 the trainables and the Prodigy state's trees in fp32, its scalars as 0-d
 fp32 tensors and the step as a host int.
 
-Checkpoints in torch's own layouts (the upstream SAM and body-pose
-state dicts) come in through :func:`load_state_dict`, a model's key
-renaming (:func:`rename_keys`, e.g. ``models/efficientvit/sam.py::
-port_sam_state_dict``) and :func:`tree_from_flat`, with no re-layout.
+Checkpoints in torch's own layouts (diffusers and HF safetensors, the
+upstream SAM and body-pose state dicts) come in through
+:func:`load_state_dict`, a model's :class:`KeyMapper` (e.g.
+``models/unet.py::port_unet_state_dict``) and :func:`tree_from_flat`,
+renamed but not re-laid out (core/pretrained.py). :func:`to_jax_params`
+is the inverse of :func:`from_jax_params`, for files that the JAX package
+reads.
 
 This module and the tests are the only places that know the JAX layouts.
 """
@@ -44,11 +47,12 @@ from __future__ import annotations
 
 import pickle
 import re
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from edgestyle_tpu_torch.core import safetensors
 from edgestyle_tpu_torch.core.device import DeviceLike, resolve_device
 
 
@@ -110,15 +114,47 @@ def _place(t: torch.Tensor, dev: torch.device, dtype: torch.dtype) -> torch.Tens
     return t.contiguous()
 
 
+def to_jax_params(tree: Mapping) -> dict:
+    """The port's tree -> nested dict of fp32 numpy arrays in the Flax
+    layouts: the exact inverse of :func:`from_jax_params` (a trainable set
+    written by ``training/checkpoint.py::export_safetensors`` loads in the
+    JAX package)."""
+    def leaf(name: str, t: torch.Tensor, is_norm: bool, is_lora: bool,
+             transpose_conv: bool) -> np.ndarray:
+        t = t.detach().float().cpu()
+        if is_lora:  # conv down (r, in, kh, kw) -> (kh, kw, in, r); else (a, b) -> (b, a)
+            t = t.permute(2, 3, 1, 0) if t.ndim == 4 else t.t()
+        elif transpose_conv and name == "kernel":  # (I, O, kH, kW) -> flipped (kH, kW, I, O)
+            t = t.permute(2, 3, 0, 1).flip(0, 1)
+        elif name == "kernel" and t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        elif name == "kernel" and t.ndim == 2:
+            t = t.t()
+        elif is_norm and t.ndim == 3:
+            t = t.permute(1, 2, 0)
+        return np.ascontiguousarray(t.numpy())
+
+    def convert(node: Mapping, name: str = "") -> dict:
+        is_norm = _is_norm(node)
+        is_lora = set(node) == {"down", "up"} and not isinstance(node["down"], Mapping)
+        return {k: convert(v, k) if isinstance(v, Mapping)
+                else leaf(k, v, is_norm, is_lora, name in CONV_TRANSPOSE_NODES)
+                for k, v in node.items()}
+
+    return convert(tree)
+
+
 # ------------------------------------------------ torch-layout checkpoints
-def load_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """A weights-only torch checkpoint (.pt / .pth / .ckpt) -> numpy state
-    dict. Takes a raw ``state_dict()`` or one wrapped under ``"state_dict"``
-    (the reference's save layouts); full pickled modules are refused."""
+def load_state_dict(path: str, device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
+    """A checkpoint in torch's layouts -> {key: tensor} on ``device``, in
+    the file's dtypes. ``.safetensors`` through the port's reader
+    (core/safetensors.py); anything else through a weights-only
+    ``torch.load`` (.pt / .pth / .ckpt) of a raw ``state_dict()`` or one
+    wrapped under ``"state_dict"`` (the reference's save layouts); full
+    pickled modules are refused."""
+    dev = resolve_device(device)
     if path.endswith(".safetensors"):
-        raise NotImplementedError(
-            f"{path}: the safetensors reader is not ported yet (ROADMAP.md Queue 1 item 1b); "
-            "pass a .pt/.pth state dict")
+        return safetensors.load_file(path, dev)
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as e:  # a pickled module or other non-tensor objects
@@ -128,37 +164,73 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
         ckpt = ckpt["state_dict"]
     if not isinstance(ckpt, dict):
         raise ValueError(f"{path}: expected a state dict, got {type(ckpt)}")
-    return {k: v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-            for k, v in ckpt.items()}
+    return {k: torch.as_tensor(v).to(dev) for k, v in ckpt.items()}
 
 
-def rename_keys(sd: Mapping, rules: Sequence[Tuple[re.Pattern, Optional[str]]]
-                ) -> Dict[str, np.ndarray]:
-    """Torch keys -> the port's dotted paths, leaves unchanged (as numpy).
-    Each key takes its first rule whose regex matches it whole; a template
-    of None drops the key. A key no rule matches raises, so a checkpoint is
-    never loaded with weights silently left out."""
-    out, unmatched = {}, []
-    for k, v in sd.items():
-        for pat, template in rules:
-            m = pat.fullmatch(k)
+Transform = Callable[[torch.Tensor], torch.Tensor]
+
+
+class KeyMapper:
+    """Torch keys -> the port's dotted paths, by rules ``(regex, template,
+    transform)``. A key takes the first rule whose regex matches it whole;
+    its path is the template expanded with the match's groups (``\\1``,
+    ``\\g<1>``), its leaf ``transform(leaf)`` or the leaf itself (a tensor
+    or a numpy array, as given); a template of None drops the key. A key
+    no rule matches raises, so a checkpoint is never loaded with weights
+    silently left out. Torch's layouts are the port's, so the rules rename
+    and, but for a few named exceptions, transform nothing."""
+
+    def __init__(self, rules: Sequence[tuple] = ()):
+        self.rules = []
+        for r in rules:
+            self.rule(*r)
+
+    def rule(self, pattern, template: Optional[str], transform: Optional[Transform] = None):
+        pat = re.compile(pattern) if isinstance(pattern, str) else pattern
+        self.rules.append((pat, template, transform))
+        return self
+
+    def module(self, pattern: str, template: str):
+        """A conv or Linear layer: weight -> kernel, bias -> bias."""
+        return self.rule(pattern + r"\.weight", template + ".kernel").rule(
+            pattern + r"\.bias", template + ".bias")
+
+    def norm(self, pattern: str, template: str):
+        """A norm layer's affine: weight -> scale, bias -> bias."""
+        return self.rule(pattern + r"\.weight", template + ".scale").rule(
+            pattern + r"\.bias", template + ".bias")
+
+    def match(self, key: str) -> Tuple[Optional[str], Optional[Transform]]:
+        """(path or None, transform) of the first rule matching ``key``
+        whole; KeyError if none does."""
+        for pat, template, transform in self.rules:
+            m = pat.fullmatch(key)
             if m:
-                if template is not None:
-                    out[m.expand(template)] = (v.detach().cpu().numpy()
-                                               if isinstance(v, torch.Tensor) else np.asarray(v))
-                break
-        else:
-            unmatched.append(k)
-    if unmatched:
-        raise KeyError(f"unported torch keys ({len(unmatched)}): {unmatched[:10]}")
-    return out
+                return (None if template is None else m.expand(template)), transform
+        raise KeyError(key)
+
+    def apply(self, sd: Mapping) -> Dict:
+        out, unmatched = {}, []
+        for k, v in sd.items():
+            try:
+                path, transform = self.match(k)
+            except KeyError:
+                unmatched.append(k)
+                continue
+            if path is not None:
+                out[path] = transform(v) if transform else v
+        if unmatched:
+            raise KeyError(f"unported torch keys ({len(unmatched)}): {unmatched[:10]}")
+        return out
 
 
-def tree_from_flat(flat: Mapping[str, np.ndarray], device: DeviceLike = "cuda",
+def tree_from_flat(flat: Mapping, device: DeviceLike = "cuda",
                    dtype: torch.dtype = torch.float32) -> dict:
-    """{dotted path: array in the port's layout} -> nested dict of tensors on
-    ``device``: norm leaves fp32, the rest ``dtype``, 4-D tensors
-    channels_last."""
+    """{dotted path: tensor or numpy array in the port's layout} -> nested
+    dict of tensors on ``device``: norm leaves fp32, the rest ``dtype``,
+    4-D tensors channels_last. A tensor already on ``device`` is cast there
+    (a real checkpoint is read to the card in its own dtype and cast on
+    the card, never held in fp32 on the host)."""
     dev = resolve_device(device)
     tree: dict = {}
     for path, v in flat.items():
@@ -166,7 +238,8 @@ def tree_from_flat(flat: Mapping[str, np.ndarray], device: DeviceLike = "cuda",
         *parents, leaf = path.split(".")
         for k in parents:
             node = node.setdefault(k, {})
-        node[leaf] = torch.from_numpy(np.ascontiguousarray(np.asarray(v, dtype=np.float32)))
+        node[leaf] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
 
     def place(node: dict) -> dict:
         is_norm = _is_norm(node)

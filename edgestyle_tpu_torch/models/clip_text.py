@@ -2,16 +2,20 @@
 
 Counterpart of edgestyle_tpu/models/clip_text.py: 12 layers, width 768,
 12 heads, quick-GELU, causal mask, final LayerNorm; the pipeline consumes
-``last_hidden_state``.
+``last_hidden_state``. :class:`CLIPTextModelWithProjection` adds the
+bias-free ``text_projection`` of prompt mining, and
+:func:`port_clip_text_state_dict` maps an HF CLIPTextModel state dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import torch
 
 from edgestyle_tpu_torch.core.params import param, sub
+from edgestyle_tpu_torch.core.porting import KeyMapper
 from edgestyle_tpu_torch.models.layers import dense, layer_norm_block
 
 
@@ -23,6 +27,7 @@ class CLIPTextConfig:
     num_heads: int = 12
     max_positions: int = 77
     intermediate_size: int = 3072
+    projection_dim: int = 768
     layer_norm_eps: float = 1e-5
 
 
@@ -73,3 +78,36 @@ class CLIPTextEncoder:
         eos = input_ids.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eos]
         return {"last_hidden_state": x, "pooled_output": pooled}
+
+
+class CLIPTextModelWithProjection:
+    """The encoder (params ``text_model``) and the bias-free
+    ``text_projection`` Dense of its pooled output (``text_embeds``)."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig(),
+                 dtype: torch.dtype = torch.float32):
+        self.cfg = cfg
+        self.dtype = dtype
+        self.text_model = CLIPTextEncoder(cfg, dtype)
+
+    def __call__(self, p, input_ids: torch.Tensor):
+        out = self.text_model(sub(p, "text_model"), input_ids)
+        proj = dense(sub(p, "text_projection"), out["pooled_output"], self.cfg.projection_dim,
+                     self.dtype, use_bias=False)
+        return {**out, "text_embeds": proj}
+
+
+def port_clip_text_state_dict(sd, num_layers: int = 12) -> Dict:
+    """HF CLIPTextModel state dict (``text_model.*``) -> flat {path: leaf}
+    of the encoder's tree; the I64 ``position_ids`` buffer is dropped."""
+    layer = "(" + "|".join(str(i) for i in range(num_layers)) + ")"
+    m = KeyMapper()
+    m.rule(r"text_model\.embeddings\.token_embedding\.weight", "token_embedding.embedding")
+    m.rule(r"text_model\.embeddings\.position_embedding\.weight", "position_embedding")
+    m.rule(r"text_model\.embeddings\.position_ids", None)
+    m.norm(r"text_model\.final_layer_norm", "final_layer_norm")
+    p, q = rf"text_model\.encoder\.layers\.{layer}", r"layers_\1"
+    m.norm(p + r"\.(layer_norm[12])", q + r".\2")
+    m.module(p + r"\.self_attn\.([qkv]_proj|out_proj)", q + r".self_attn.\2")
+    m.module(p + r"\.mlp\.(fc[12])", q + r".\2")
+    return m.apply(sd)

@@ -32,7 +32,6 @@ import math
 import re
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -406,21 +405,21 @@ def _sam_rules(cfg: SamConfig):
     return [(re.compile(pat), tmpl) for pat, tmpl in rules]
 
 
-def port_sam_state_dict(sd, cfg: SamConfig = SAM_L2) -> Dict[str, np.ndarray]:
+def port_sam_state_dict(sd, cfg: SamConfig = SAM_L2) -> Dict:
     """An upstream EfficientViTSam state dict (``image_encoder.backbone.
     stages.{s}.op_list.{j}...``, ``prompt_encoder...``, ``mask_decoder...``;
-    numpy arrays or tensors) -> flat {dotted path: numpy array} of the
-    port's tree (core/porting.py::tree_from_flat places it). Every key must
+    numpy arrays or tensors) -> flat {dotted path: leaf} of the port's
+    tree (core/porting.py::tree_from_flat places it). Every key must
     match a rule; the prompt encoder's four point embeddings become one
     (4, 256) table, its not-a-point and no-mask embeddings vectors."""
-    from edgestyle_tpu_torch.core.porting import rename_keys
+    from edgestyle_tpu_torch.core.porting import KeyMapper
 
-    out = rename_keys(sd, _sam_rules(cfg))
+    out = KeyMapper(_sam_rules(cfg)).apply(sd)
     pe = "prompt_encoder"
     pts = [out.pop(f"{pe}.point_embeddings.{i}") for i in range(4)
            if f"{pe}.point_embeddings.{i}" in out]
     if pts:
-        out[f"{pe}.point_embeddings"] = np.concatenate(pts, axis=0)
+        out[f"{pe}.point_embeddings"] = torch.cat([torch.as_tensor(p) for p in pts])
     for name in ("not_a_point_embed", "no_mask_embed"):
         if f"{pe}.{name}" in out:
             out[f"{pe}.{name}"] = out[f"{pe}.{name}"][0]

@@ -20,7 +20,6 @@ COCO-18 keypoint order, as the reference documents (extract_dataset.py:196-213).
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -107,13 +106,7 @@ class BodyPoseNet:
         return materialize(tree, generator, self.dtype)
 
 
-def port_bodypose_state_dict(sd) -> Dict[str, np.ndarray]:
-    """controlnet_aux/CMU ``body_pose_model.pth`` keys (``model0.conv1_1``,
-    ``model1_1.conv5_1_CPM_L1``, ``model{s}_{L}.Mconv{i}_stage{s}_L{L}``) ->
-    flat {dotted path: numpy array} of the port's tree (torch layout
-    unchanged; core/porting.py::tree_from_flat places it)."""
-    from edgestyle_tpu_torch.core.porting import rename_keys
-
+def _bodypose_rules() -> List[Tuple[str, str]]:
     rules = []
     for name, _ in (t for t in TRUNK if t != "pool"):
         rules.append((rf"model0\.{name}\.(weight|bias)", name))
@@ -125,8 +118,17 @@ def port_bodypose_state_dict(sd) -> Dict[str, np.ndarray]:
             for i in range(1, 8):
                 rules.append((rf"model{s}_{L}\.Mconv{i}_stage{s}_L{L}\.(weight|bias)",
                               f"stage{s}_L{L}.conv_{i - 1}"))
-    rules = [(re.compile(pat), prefix + r".\1") for pat, prefix in rules]
-    out = rename_keys(sd, rules)
+    return [(pat, prefix + r".\1") for pat, prefix in rules]
+
+
+def port_bodypose_state_dict(sd) -> Dict:
+    """controlnet_aux/CMU ``body_pose_model.pth`` keys (``model0.conv1_1``,
+    ``model1_1.conv5_1_CPM_L1``, ``model{s}_{L}.Mconv{i}_stage{s}_L{L}``) ->
+    flat {dotted path: leaf} of the port's tree (torch layout unchanged;
+    core/porting.py::tree_from_flat places it)."""
+    from edgestyle_tpu_torch.core.porting import KeyMapper
+
+    out = KeyMapper(_bodypose_rules()).apply(sd)
     return {k[:-len(".weight")] + ".kernel" if k.endswith(".weight") else k: v
             for k, v in out.items()}
 

@@ -4,18 +4,22 @@ Counterpart of edgestyle_tpu/models/unet.py. One trunk serves both the
 UNet and the ControlNet (``controlnet_mode``), with the JAX package's
 param names, so a ControlLoRA branch is the UNet's trunk subtree (plus its
 merged LoRA) and its own zero-conv heads: :func:`controllora_params`.
-Methods take the param tree first, like Flax's ``apply``.
+Methods take the param tree first, like Flax's ``apply``. The diffusers
+state-dict mappers (:func:`port_unet_state_dict`,
+:func:`port_controlnet_state_dict`) close the file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from edgestyle_tpu_torch.core.params import flatten, sub, unflatten
+from edgestyle_tpu_torch.core.porting import KeyMapper
 from edgestyle_tpu_torch.models.layers import (
     conv,
     downsample,
@@ -254,3 +258,72 @@ def controllora_params(unet_params: Dict, lora_params: Dict, head_params: Dict,
     merged = merge_lora(trunk, lora_params, lora_scale) if lora_params else dict(trunk)
     merged.update(head_params)
     return merged
+
+
+# ------------------------------------------------- diffusers checkpoints
+# diffusers UNet2DConditionModel / ControlNetModel state dicts (the
+# SG161222/Realistic_Vision_V5.1_noVAE UNet, lllyasviel's openpose
+# ControlNet) -> the port's flat {path: leaf}. Torch's layouts are the
+# port's, so the rules only rename. The block indices stay regex groups,
+# over the ranges the JAX package's mappers accept.
+def _groups(pattern: str) -> int:
+    return re.compile(pattern).groups
+
+
+def _map_transformer(m: KeyMapper, tp: str, fp: str) -> KeyMapper:
+    """A Transformer2DModel at torch prefix ``tp`` (a regex whose groups
+    ``fp`` may name) -> the port's ``transformer_2d`` subtree at ``fp``.
+    SD1.5's proj_in / proj_out are 1x1 convs (use_linear_projection=False):
+    their (O, I, 1, 1) weights stay 4-D, as ``layers.pointwise`` reads them."""
+    g = _groups(tp)
+    m.norm(tp + r"\.norm", fp + ".norm")
+    m.module(tp + r"\.(proj_in|proj_out)", fp + rf".\g<{g + 1}>")
+    bp, fq = tp + r"\.transformer_blocks\.([0-3])", fp + rf".blocks_\g<{g + 1}>"
+    m.norm(bp + r"\.(norm[123])", fq + rf".\g<{g + 2}>")
+    m.module(bp + r"\.(attn[12])\.(to_[qkv])", fq + rf".\g<{g + 2}>.\g<{g + 3}>")
+    m.module(bp + r"\.(attn[12])\.to_out\.0", fq + rf".\g<{g + 2}>.to_out")
+    m.module(bp + r"\.ff\.net\.0\.proj", fq + ".ff.proj_in")
+    m.module(bp + r"\.ff\.net\.2", fq + ".ff.proj_out")
+    return m
+
+
+def _map_unet_resnet(m: KeyMapper, tp: str, fp: str) -> KeyMapper:
+    g = _groups(tp)
+    m.norm(tp + r"\.(norm[12])", fp + rf".\g<{g + 1}>")
+    m.module(tp + r"\.(conv1|conv2|conv_shortcut|time_emb_proj)", fp + rf".\g<{g + 1}>")
+    return m
+
+
+def _unet_common_mapper(m: KeyMapper) -> KeyMapper:
+    """The trunk the UNet and the ControlNet share (and a ControlLoRA ties)."""
+    m.module(r"conv_in", "conv_in")
+    m.module(r"time_embedding\.(linear_[12])", r"time_embedding.\1")
+    _map_unet_resnet(m, r"down_blocks\.([0-3])\.resnets\.([0-2])", r"down_blocks_\1.resnets_\2")
+    _map_transformer(m, r"down_blocks\.([0-3])\.attentions\.([0-2])",
+                     r"down_blocks_\1.attentions_\2")
+    m.module(r"down_blocks\.([0-3])\.downsamplers\.0\.conv", r"down_blocks_\1.downsamplers_0.conv")
+    _map_unet_resnet(m, r"mid_block\.resnets\.([01])", r"mid_block.resnets_\1")
+    _map_transformer(m, r"mid_block\.attentions\.0", "mid_block.attentions_0")
+    return m
+
+
+def port_unet_state_dict(sd) -> Dict:
+    """diffusers UNet2DConditionModel state dict -> flat {path: leaf}."""
+    m = _unet_common_mapper(KeyMapper())
+    _map_unet_resnet(m, r"up_blocks\.([0-3])\.resnets\.([0-2])", r"up_blocks_\1.resnets_\2")
+    _map_transformer(m, r"up_blocks\.([0-3])\.attentions\.([0-2])", r"up_blocks_\1.attentions_\2")
+    m.module(r"up_blocks\.([0-3])\.upsamplers\.0\.conv", r"up_blocks_\1.upsamplers_0.conv")
+    m.norm(r"conv_norm_out", "conv_norm_out")
+    m.module(r"conv_out", "conv_out")
+    return m.apply(sd)
+
+
+def port_controlnet_state_dict(sd) -> Dict:
+    """diffusers ControlNetModel state dict -> flat {path: leaf} of the
+    ``controlnet_mode`` tree."""
+    m = _unet_common_mapper(KeyMapper())
+    m.module(r"controlnet_cond_embedding\.(conv_in|conv_out)", r"controlnet_cond_embedding.\1")
+    m.module(r"controlnet_cond_embedding\.blocks\.([0-5])", r"controlnet_cond_embedding.blocks_\1")
+    m.module(r"controlnet_down_blocks\.(\d|1[01])", r"controlnet_down_blocks_\1")
+    m.module(r"controlnet_mid_block", "controlnet_mid_block")
+    return m.apply(sd)

@@ -9,12 +9,14 @@ and nearest-2x upsampling. GroupNorm eps is 1e-6 throughout.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import re
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from edgestyle_tpu_torch.core.params import sub
+from edgestyle_tpu_torch.core.porting import KeyMapper
 from edgestyle_tpu_torch.models.layers import (
     conv,
     downsample,
@@ -102,3 +104,31 @@ class AutoencoderKL:
 
     def __call__(self, p, x, generator: Optional[torch.Generator] = None):
         return self.decode(p, self.encode(p, x, generator))
+
+
+def _map_resnet(m: KeyMapper, tp: str, fp: str) -> KeyMapper:
+    g = re.compile(tp).groups
+    m.norm(tp + r"\.(norm[12])", fp + rf".\g<{g + 1}>")
+    m.module(tp + r"\.(conv1|conv2|conv_shortcut)", fp + rf".\g<{g + 1}>")
+    return m
+
+
+def port_vae_state_dict(sd) -> Dict:
+    """diffusers AutoencoderKL state dict (stabilityai/sd-vae-ft-mse) ->
+    flat {path: leaf} of the port's tree, renamed only (torch's layouts are
+    the port's)."""
+    m = KeyMapper()
+    m.module(r"(quant_conv|post_quant_conv)", r"\1")
+    m.module(r"(encoder|decoder)\.(conv_in|conv_out)", r"\1.\2")
+    m.norm(r"(encoder|decoder)\.conv_norm_out", r"\1.conv_norm_out")
+    _map_resnet(m, r"(encoder|decoder)\.mid_block\.resnets\.([01])", r"\1.mid.resnet_\2")
+    mp, fp = r"(encoder|decoder)\.mid_block\.attentions\.0", r"\1.mid.attn"
+    m.norm(mp + r"\.group_norm", fp + ".group_norm")
+    m.module(mp + r"\.(to_[qkv])", fp + r".\2")
+    m.module(mp + r"\.to_out\.0", fp + ".to_out")
+    _map_resnet(m, r"encoder\.down_blocks\.([0-3])\.resnets\.([01])", r"encoder.down_\1_resnet_\2")
+    m.module(r"encoder\.down_blocks\.([0-3])\.downsamplers\.0\.conv",
+             r"encoder.down_\1_downsample.conv")
+    _map_resnet(m, r"decoder\.up_blocks\.([0-3])\.resnets\.([0-2])", r"decoder.up_\1_resnet_\2")
+    m.module(r"decoder\.up_blocks\.([0-3])\.upsamplers\.0\.conv", r"decoder.up_\1_upsample.conv")
+    return m.apply(sd)

@@ -83,12 +83,11 @@ class EdgeStylePipeline:
         self.vae_downscale = 2 ** (len(cfg.vae.block_out_channels) - 1)
 
     # ------------------------------------------------------------------
-    def init_params(self, generator: torch.Generator) -> Dict:
-        """The port's own random init, in the JAX tree layout: every model's
-        forward runs once on the meta device to record its params, which
-        are then drawn from ``generator`` (on this pipeline's device).
-        ControlNet heads and the cond embedding's conv_out start at zero,
-        LoRA ups at zero, as in JAX."""
+    def record_params(self) -> InitTree:
+        """Every model's forward run once on the meta device, recording its
+        params (shapes, init rules, which stay fp32): the tree
+        :meth:`init_params` draws, without its ControlLoRA branches (each
+        the UNet's trunk and the static net's ``controlnet_*`` subtrees)."""
         cfg = self.cfg
         meta = torch.device("meta")
         s = cfg.vae.sample_size
@@ -111,7 +110,14 @@ class EdgeStylePipeline:
         n = cfg.num_branches
         edgestyle_fusion(sub(cn, "fusion"), [list(down)] * n, [mid] * n,
                          self.mcn.down_channels, cfg.unet.block_out_channels[-1], self.dtype)
-        params = materialize(tree, generator, self.dtype)
+        return tree
+
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """The port's own random init, in the JAX tree layout: the recorded
+        params (:meth:`record_params`) drawn from ``generator`` (on this
+        pipeline's device). ControlNet heads and the cond embedding's
+        conv_out start at zero, LoRA ups at zero, as in JAX."""
+        params = materialize(self.record_params(), generator, self.dtype)
 
         heads = {k: v for k, v in params["controlnet"]["static"].items()
                  if k.startswith("controlnet_")}

@@ -6,8 +6,13 @@ weights never are); the save reads back what it wrote and raises unless
 it is equal; ``checkpoint-<step>`` directories rotate under a total limit;
 ``latest`` resumes from the newest step. The format is ``torch.save`` of
 the state moved to the host (one ``state.pt`` per directory), read back
-with ``weights_only=True``. The safetensors and reference-layout exports
-are not ported yet.
+with ``weights_only=True``.
+
+The deployable artifact is :func:`export_safetensors`: the trainable set
+as one flat safetensors file in the JAX package's layout (its
+``export_safetensors``), so that either package loads what the other
+wrote; core/pretrained.py::export_reference_layout writes the
+reference's directory layout.
 """
 
 from __future__ import annotations
@@ -17,9 +22,13 @@ import re
 import shutil
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from edgestyle_tpu_torch.core.device import DeviceLike, resolve_device
+from edgestyle_tpu_torch.core.params import flatten, unflatten
+from edgestyle_tpu_torch.core.porting import from_jax_params, to_jax_params
+from edgestyle_tpu_torch.core.safetensors import load_file, save_file
 
 STATE_FILE = "state.pt"
 
@@ -104,3 +113,22 @@ def load_checkpoint(root: str, step: Union[str, int] = "latest",
     path = os.path.join(os.path.abspath(_dir(root, int(step))), STATE_FILE)
     state = torch.load(path, map_location="cpu", weights_only=True)
     return _map(state, lambda t: t.to(dev))
+
+
+def export_safetensors(path: str, trainable: Dict[str, Any]) -> None:
+    """The trainable set (adapters, heads, fusion) -> one safetensors file of
+    flat dotted keys with the JAX package's Flax leaves (HWIO convs, (in,
+    out) Dense and adapters, (H, W, C) LayerNorms; core/porting.py::
+    to_jax_params), fp32: the file the JAX package's ``export_safetensors``
+    writes for the same weights."""
+    flat = {".".join(k): torch.from_numpy(v) for k, v in flatten(to_jax_params(trainable)).items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    save_file(flat, path)
+
+
+def import_safetensors(path: str, device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """A trainable set exported by either package -> the port's tree, fp32
+    on ``device`` (core/porting.py::from_jax_params)."""
+    flat = {tuple(k.split(".")): np.asarray(v.float().numpy())
+            for k, v in load_file(path).items()}
+    return from_jax_params(unflatten(flat), device, torch.float32)

@@ -369,6 +369,12 @@ def test_train_main_runs_checkpoints_and_resumes(tmp_path, capsys):
     assert checkpoint.list_checkpoints(str(tmp_path)) == [2]
     saved = checkpoint.load_checkpoint(str(tmp_path), device="cpu")
     assert checkpoint.states_equal(saved, out["state"])
+    from edgestyle_tpu_torch.core.pretrained import load_edgestyle_pretrained_dir
+
+    for exported in (load_edgestyle_pretrained_dir(str(tmp_path / "controlnet"), "cpu"),
+                     checkpoint.import_safetensors(
+                         str(tmp_path / "edgestyle_trainable.safetensors"), "cpu")):
+        assert checkpoint.states_equal(exported, out["state"]["trainable"])
     out2 = train_app.main(argv[:-4] + ["--max_train_steps", "3", "--output_dir", str(tmp_path),
                                        "--resume_from_checkpoint", "latest"],
                           device="cpu", base_cfg=TRAIN_CFG)
@@ -389,9 +395,18 @@ def test_train_build_keeps_frozen_bf16_and_trainables_fp32():
                if k[-1] == "down")
 
 
-@pytest.mark.parametrize("flags", [["--dataset_dir", "d", "--random_init"], [],
+@pytest.mark.parametrize("flags", [["--dataset_dir", "d", "--random_init"],
                                    ["--random_init", "--validation_steps", "5"],
                                    ["--random_init", "--dataloader_num_workers", "2"]])
 def test_train_main_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_app.main(flags, device="cpu", base_cfg=TRAIN_CFG)
+
+
+@pytest.mark.parametrize("flags,missing", [
+    ([], "--pretrained_model, --vae, --openpose_controlnet"),
+    (["--pretrained_model", "sd", "--vae", "vae"], "missing --openpose_controlnet"),
+])
+def test_train_main_without_weights_names_the_directories(flags, missing):
+    with pytest.raises(ValueError, match=missing):
         train_app.main(flags, device="cpu", base_cfg=TRAIN_CFG)

@@ -167,15 +167,67 @@ REQUIRED = ["--subject", "s.png", "--clothes1", "a.png", "--clothes2", "b.png", 
     (["--tome", "0.5"], "item 12"), (["--int8_scales", "s.json"], "item 12"),
     (["--scheduler", "dpm++"], "item 12"), (["--scheduler", "lcm"], "item 12"),
     (["--lcm_lora", "a.safetensors"], "item 14"), (["--clip_model", "clip"], "item 14"),
-    (["--exported_dir", "art"], "item 15"), (["--pretrained_model", "sd"], "item 1b"),
-    (["--vae", "vae"], "item 1b"), (["--openpose_controlnet", "op"], "item 1b"),
-    (["--edgestyle_checkpoint", "ck"], "item 1b"),
-    (["--sam_checkpoint", "sam.safetensors"], "item 1b"),
-    (["--bodypose_checkpoint", "pose.safetensors"], "item 1b"),
+    (["--exported_dir", "art"], "item 15"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tryon.main(REQUIRED + flags, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pretrained_model", "sd"], ["--vae", "vae"], ["--openpose_controlnet", "op"],
+    ["--edgestyle_checkpoint", "ck"], ["--sam_checkpoint", "sam.safetensors"],
+    ["--bodypose_checkpoint", "pose.safetensors"],
+])
+def test_weight_flags_are_ported(flags):
+    """The checkpoint loaders' flags ask for nothing unported."""
+    tryon.refuse_unported(tryon.parse_args(REQUIRED + flags))
+
+
+def _save_both(tmp_path, name, sd):
+    """``sd`` as a torch pickle and as a safetensors file (the port's writer)."""
+    from edgestyle_tpu_torch.core.safetensors import save_file
+
+    torch.save(sd, tmp_path / f"{name}.pt")
+    save_file(sd, str(tmp_path / f"{name}.safetensors"))
+    return str(tmp_path / f"{name}.pt"), str(tmp_path / f"{name}.safetensors")
+
+
+@pytest.mark.parametrize("model", ["sam", "bodypose"])
+def test_safetensors_checkpoints_load_as_pt(tmp_path, model):
+    """A SAM-MID (base and a decoder-only head) or body-pose checkpoint in
+    .safetensors loads equal, leaf by leaf, to the same weights in .pt."""
+    import json
+
+    from tests import golden_mirror as gm
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.core.porting import load_state_dict, tree_from_flat
+    from edgestyle_tpu_torch.models.efficientvit.backbone import BackboneConfig
+    from edgestyle_tpu_torch.models.efficientvit.sam import SamConfig
+    from edgestyle_tpu_torch.models.openpose import port_bodypose_state_dict
+
+    if model == "sam":
+        with open(gm.SAM_SHAPES_JSON) as f:
+            sd = {k: torch.from_numpy(v) for k, v in
+                  gm.synth_state_dict(json.load(f)["sam_mid"]).items()}
+        c = gm.SAM_MID
+        pre = TryOnPreprocessor(SamConfig(
+            backbone=BackboneConfig(width_list=tuple(c["widths"]), depth_list=tuple(c["depths"])),
+            neck_depth=c["neck_depth"], image_size=c["image_size"]))
+        dec = {k[len("mask_decoder."):]: v * 2 for k, v in sd.items()
+               if k.startswith("mask_decoder.")}
+        trees = [tryon._load_sam_params(pre, base, {"head": head}, device="cpu")
+                 for base, head in zip(_save_both(tmp_path, "base", sd),
+                                       _save_both(tmp_path, "head", dec))]
+    else:
+        sd = {k: torch.from_numpy(v) for k, v in
+              gm.synth_state_dict(gm.load_shapes()["bodypose"]).items()}
+        trees = [tree_from_flat(port_bodypose_state_dict(load_state_dict(p)), "cpu")
+                 for p in _save_both(tmp_path, "pose", sd)]
+    pt, st = (flatten(tr) for tr in trees)
+    assert pt.keys() == st.keys() and len(pt) > 100
+    for k, v in pt.items():
+        assert st[k].dtype == v.dtype and torch.equal(st[k], v), k
 
 
 def test_exact_values_of_the_knobs_are_accepted():
