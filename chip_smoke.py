@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (edgestyle_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                    # every phase
-    python3 chip_smoke.py --profile OUT_DIR  # + a profiled B=1 generation and training step
+    python3 chip_smoke.py --profile OUT_DIR  # + profiled generation, serving runs, training step
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
@@ -9,7 +9,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
   2. kernel phase: every hand-written kernel against its plain PyTorch
      version on the card, at the full-width shapes its path gives it (the
      fused conv and the GN statistics also on the fp32 x of the LoRA
-     trunks' first convs), with its time, the plain version's time, one
+     trunks' first convs; the flash forward also at the serving knobs'
+     shapes), with its time, the plain version's time, one
      PyTorch library call of the same function as a yardstick (never used by
      the port) and the least time the card could take (the bound); and the
      fused conv's bf16 activations against bf16(exact silu), on bf16 and
@@ -40,6 +41,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
      discs, the pose decode on synthetic maps of known people, each equal
      on the card and the CPU and to its known answer; a
      ``{"tryon_system": ...}`` line holds its numbers;
+  4c. serving (``serving_phase``): the serving knobs at full width on the
+     generation phase's pipeline and params, 512 px, B=1: the exact
+     program, each ``--mode`` preset of apps/tryon.py (conservative,
+     quality, aggressive, turbo) and DPM++ at 20 steps, ``--mode lcm`` (4
+     steps) on the UNet merged with a seeded rank-64 LCM-LoRA, and a ToMe
+     ratio (0.3) whose merged 2868 tokens are off the flash kernel's tile
+     grid; each one warm-up and three timed requests, the kernels' launches
+     against the counts the code predicts, the image's difference from the
+     exact one printed (not held); held: the knobs at their exact values
+     give the exact image bit for bit, ``shallow_forward`` on the deep
+     feature of the same (sample, t) equals the UNet's output bit for bit,
+     ``cfg_interval`` (0, 0) against guidance 1.0 and turbo through the
+     kernels against the ops' plain versions (4 steps) within the
+     end-to-end tolerance, ToMe's merge rows on the card equal the CPU's; a
+     ``{"serving": ...}`` line holds its numbers;
   5. training phase: the ControlLoRA trainer's entry point
      (``apps/train.py::main``) at full width, 512 px, micro-batch 2, 3
      steps of Prodigy with Min-SNR-gamma 5, from the port's random init,
@@ -224,6 +240,12 @@ def card_line() -> str:
 # batched) 4 x 8, the static trunk (three branches) 6 x 8; N, D are 4096, 40
 # and 1024, 80.
 FLASH_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8, 6 * 8) for n, d in ((4096, 40), (1024, 80))]
+# The serving knobs' shapes (serving phase): ToMe 0.5 merges the 64x64
+# level's 4096 tokens to 2048 (UNet and the three trunks), a CFG-off step
+# runs the UNet at B=1 (8 heads of 4096), and ToMe 0.3 leaves 4096 - 1228 =
+# 2868 tokens, off the kernel's 128-key tile grid (a masked last tile).
+FLASH_SERVING_SHAPES = [(16, 2048, 40), (32, 2048, 40), (48, 2048, 40), (8, 4096, 40),
+                        (16, 4096 - int(0.3 * 4096), 40)]
 # Checked, not timed: a ragged last key tile, and the widest and narrowest
 # head dims the dispatch rule sends to the kernel.
 FLASH_CHECK_SHAPES = [(2, 1000, 40), (2, 1024, 128), (2, 1024, 8)]
@@ -260,7 +282,7 @@ def kernel_phase(dev):
     records = []
 
     shapes = []
-    for bh, n, d in FLASH_SHAPES + FLASH_CHECK_SHAPES:
+    for bh, n, d in FLASH_SHAPES + FLASH_SERVING_SHAPES + FLASH_CHECK_SHAPES:
         q, k, v = (torch.randn((1, bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         scale = 1.0 / math.sqrt(d)
@@ -667,23 +689,11 @@ def profile_phase(dev, pipe, params, gen, out_dir: str) -> None:
     """One B=1 20-step generation under torch.profiler: device time by
     kernel and the device's busy share of the wall time. The full table
     goes to ``out_dir/profile_b1.txt``."""
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = pipe.cfg
     ids, neg, imgs, lat = make_request(gen, dev, 1, cfg.num_branches, cfg.latent_branches)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe(params, ids, neg, imgs, latents=lat, num_inference_steps=20)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = _device_rows(prof)
-    busy = sum(r[0] for r in rows) / 1e3
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_b1.txt"), "w") as f:
-        f.write(f"wall {wall:.4f} s, device busy {busy:.4f} s\n")
-        for ms, n, key in rows:
-            f.write(f"{ms:12.3f} ms {n:7d}x  {key}\n")
+    rows, wall, busy = profiled(
+        lambda: pipe(params, ids, neg, imgs, latents=lat, num_inference_steps=20), out_dir,
+        "profile_b1.txt")
     print(f"profile (B=1, 20 steps, profiler on): wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), idle share {100 * (1 - busy / wall):.1f}%, "
           f"{sum(r[1] for r in rows)} device launches", flush=True)
@@ -721,6 +731,288 @@ def e2e_phase(dev, pipe, params, gen):
           f"mean_abs_diff={diff.mean().item():.4e} (tol {E2E_TOL})", flush=True)
     if not diff.max().item() <= E2E_TOL:
         fail("end-to-end images through the kernels and the plain versions disagree")
+
+
+# ---------------------------------------------------------------- serving
+# Launches of one request by the part of a denoise step that runs, from the
+# code at SD1.5 width (GEN_LAUNCHES_PER_REQUEST is every step at full): the
+# three trunk calls (4 self-attentions of >= 1024 tokens and 10 ResNet
+# blocks each), the full UNet (10 and 22), shallow_forward (down block 0
+# without its downsampler and the last up block: 5 and 5), and the VAE's 24
+# ResNet blocks once. ToMe and CFG-off steps change no count: a merged 64x64
+# level keeps 2048 (ratio 0.5) or 2868 (0.3) tokens, still >= 1024 (the
+# flash rule), and a half-batch call launches each kernel once, as a full one.
+STEP_PARTS = {"trunks": {"flash_fwd": 12, "conv": 2 * 30},
+              "unet": {"flash_fwd": 10, "conv": 2 * 22},
+              "shallow": {"flash_fwd": 5, "conv": 2 * 5}}
+VAE_CONV_LAUNCHES = 2 * (10 + 14)
+SERVING_STEPS = 20
+ALL = tuple(range(SERVING_STEPS))
+# name: (--mode or knob flags of apps/tryon.py, steps, the steps that run the
+# trunks, the steps that run the full UNet): the refresh sets read from the
+# presets (apps/tryon.py::SERVING_MODES) and the pipeline's rule that an
+# interval k refreshes at 0, k, 2k, ...
+SERVING_RUNS = {
+    "exact": ([], SERVING_STEPS, ALL, ALL),
+    "conservative": (["--mode", "conservative"], SERVING_STEPS, ALL, ALL),
+    "quality": (["--mode", "quality"], SERVING_STEPS, tuple(range(0, 20, 2)), ALL),
+    "aggressive": (["--mode", "aggressive"], SERVING_STEPS, (0, 1, 2, 4, 7, 11, 16), ALL),
+    "turbo": (["--mode", "turbo"], SERVING_STEPS, tuple(range(0, 20, 3)), tuple(range(0, 20, 2))),
+    "dpm++": (["--scheduler", "dpm++"], SERVING_STEPS, ALL, ALL),
+    "lcm": (["--mode", "lcm"], 4, (0, 1, 2, 3), (0, 1, 2, 3)),
+    "tome_0.3_off_grid": (["--tome", "0.3"], SERVING_STEPS, ALL, ALL),
+}
+SERVING_TIMED = 3
+LCM_LORA_RANK = 64
+# A cfg_interval (0, 0) generation (B rows, conditional context) against
+# guidance 1.0 (2B rows, uncond + 1 * (cond - uncond)): the same function,
+# through kernels at other batch sizes, whose bf16 sums round at other
+# places: the end-to-end check's tolerance, at its depth (4 steps here).
+CFG_OFF_TOL = E2E_TOL
+
+
+def serving_launches(steps: int, trunk_steps, unet_steps) -> dict:
+    """The kernels' predicted launches of one B=1 request."""
+    flash = conv = 0
+    for i in range(steps):
+        parts = (["trunks"] if i in trunk_steps else []) + (
+            ["unet"] if i in unet_steps else ["shallow"])
+        flash += sum(STEP_PARTS[p]["flash_fwd"] for p in parts)
+        conv += sum(STEP_PARTS[p]["conv"] for p in parts)
+    conv += VAE_CONV_LAUNCHES
+    return {"flash_fwd": flash, "gn_scale_shift": conv, "fused_gn_silu_conv3x3": conv,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def seeded_lcm_lora(unet_params, gen, rank: int):
+    """Adapters over every attention, feed-forward and time-embedding linear
+    of the whole UNet (the LCM-LoRA distiller's targets), the port's layout:
+    down (rank, in) ~ N(0, 1/rank), up (out, rank) ~ N(0, 0.02^2), fp32."""
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+    from edgestyle_tpu_torch.models.unet import LORA_LINEAR_LEAF_NAMES
+
+    lora = {}
+    for path, leaf in flatten(unet_params).items():
+        if (leaf.ndim == 2 and path[-1] == "kernel"
+                and any(path[-2].startswith(n) for n in LORA_LINEAR_LEAF_NAMES)):
+            dout, din = leaf.shape
+            dev = leaf.device
+            lora[path] = {
+                "down": torch.randn((rank, din), generator=gen, device=dev) / rank,
+                "up": 0.02 * torch.randn((dout, rank), generator=gen, device=dev)}
+    return unflatten(lora)
+
+
+def serving_phase(dev, pipe, params, gen, card: str, profile_dir=None):
+    """The serving knobs at full width on the generation phase's params,
+    512 px, B=1: each run is one warm-up and SERVING_TIMED timed requests of
+    the same request through apps/tryon.py's presets and knob flags
+    (apply_serving_mode, serving_kwargs) and the pipeline they ask for, with
+    the kernels' launches against serving_launches; the image's max-abs
+    difference from the exact image is printed, not held (random weights).
+    Held: the knobs at their exact values give the exact image bit for bit;
+    shallow_forward on a deep feature from the same (sample, t) equals the
+    UNet's output bit for bit; cfg_interval (0, 0) against guidance 1.0 and
+    turbo through the kernels against the ops' plain versions (4 steps)
+    within E2E_TOL; ToMe's merge rows on the card equal the CPU's. With
+    ``profile_dir``, one more request of each run under torch.profiler:
+    device time, busy share and device launches
+    (``profile_dir/profile_serving_<run>.txt``)."""
+    import dataclasses
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import tryon
+    from edgestyle_tpu_torch.models import layers
+    from edgestyle_tpu_torch.ops import attention, flash, fused_conv, tome
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline
+    from edgestyle_tpu_torch.training.distill import apply_lcm_lora
+
+    exact_counts = serving_launches(SERVING_STEPS, ALL, ALL)
+    if exact_counts != GEN_LAUNCHES_PER_REQUEST:
+        fail(f"serving: the step parts {STEP_PARTS} do not add up to the generation's "
+             f"counts {GEN_LAUNCHES_PER_REQUEST}")
+    cfg = pipe.cfg
+    req = make_request(gen, dev, 1, cfg.num_branches, cfg.latent_branches)
+    rec, bad = {"card": card, "runs": {}}, []
+    pipes = {}
+
+    def pipe_for(scheduler: str, ratio: float):
+        key = (scheduler, ratio)
+        if key not in pipes:
+            pipes[key] = EdgeStylePipeline(dataclasses.replace(cfg, scheduler=scheduler),
+                                           device=dev, tome=ratio)
+        return pipes[key]
+
+    lcm_params = dict(params, unet=apply_lcm_lora(
+        params["unet"], seeded_lcm_lora(params["unet"], gen, LCM_LORA_RANK)))
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    exact_img = None
+    for name, (flags, steps, trunk_steps, unet_steps) in SERVING_RUNS.items():
+        args = tryon.apply_serving_mode(tryon.parse_args(
+            ["--subject", "s", "--clothes1", "a", "--clothes2", "b", "--random_init"] + flags))
+        if args.steps != steps:
+            fail(f"serving {name}: the preset asks for {args.steps} steps, the run for {steps}")
+        knobs = tryon.serving_kwargs(args)
+        run_pipe = pipe_for(args.scheduler, float(args.tome))
+        run_params = lcm_params if args.scheduler == "lcm" else params
+
+        def request():
+            return run_pipe(run_params, *req[:3], latents=req[3], num_inference_steps=steps,
+                            generator=torch.Generator(device=dev).manual_seed(0), **knobs)
+
+        request()  # warm-up
+        kernels.reset_launches()
+        walls, images = [], []
+        for _ in range(SERVING_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images.append(request())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        img = images[-1]
+        per = {k: v / SERVING_TIMED for k, v in kernels.LAUNCHES.items()}
+        for k, v in kernels.LAUNCHES.items():
+            totals[k] += v
+        kernels.reset_launches()
+        prof = None
+        if profile_dir:
+            rows, wall, busy = profiled(request, profile_dir, f"profile_serving_{name}.txt")
+            prof = dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
+                        device_launches=sum(r[1] for r in rows), families=_families(rows))
+        check_images(img, 1, f"serving {name}")
+        want = serving_launches(steps, trunk_steps, unet_steps)
+        if name == "exact":
+            exact_img = img
+        diff = (img - exact_img).abs().max().item()
+        rec["runs"][name] = dict(flags=flags, steps=steps, scheduler=args.scheduler,
+                                 tome=float(args.tome), knobs={k: list(v) if isinstance(
+                                     v, tuple) else v for k, v in knobs.items()},
+                                 wall_s=walls, wall_s_median=statistics.median(walls),
+                                 launches_per_request=per, predicted=want,
+                                 max_abs_diff_from_exact=diff,
+                                 repeats_equal_bitwise=all(torch.equal(i, img) for i in images),
+                                 profiled=prof,
+                                 image_mean=img.mean().item(), image_std=img.std().item())
+        print(f"serving {name} ({' '.join(flags) or 'exact'}: {args.scheduler}, tome "
+              f"{float(args.tome)}, {steps} steps, knobs {knobs}): wall "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s (median "
+              f"{statistics.median(walls):.3f}); launches per request flash_fwd "
+              f"{per['flash_fwd']:g} (predicted {want['flash_fwd']}), gn_scale_shift "
+              f"{per['gn_scale_shift']:g}, fused_gn_silu_conv3x3 "
+              f"{per['fused_gn_silu_conv3x3']:g} (predicted {want['fused_gn_silu_conv3x3']}); "
+              f"max |image - exact| {diff:.4f} (printed, not held); repeats bit for bit "
+              f"{rec['runs'][name]['repeats_equal_bitwise']}", flush=True)
+        if prof:
+            print(f"  profiled (profiler on): wall {prof['wall_s']:.3f} s, device busy "
+                  f"{prof['device_s']:.3f} s ({100 * prof['busy_share']:.1f}%), "
+                  f"{prof['device_launches']} device launches; by family: "
+                  f"{prof['families']}", flush=True)
+        if per != {k: float(v) for k, v in want.items()}:
+            bad.append(f"{name}: launches {per} against the prediction {want}")
+
+    # the knobs at their exact values: the exact program, the exact image
+    knob_pipe = pipe_for("unipc", 0.0)
+    same = knob_pipe(params, *req[:3], latents=req[3], num_inference_steps=SERVING_STEPS,
+                     controlnet_cache_interval=1, unet_cache_interval=1, cfg_interval=(0.0, 1.0),
+                     controlnet_cache_steps=ALL, unet_cache_steps=ALL)
+    rec["exact_knobs_equal_bitwise"] = bool(torch.equal(same, exact_img))
+    if not rec["exact_knobs_equal_bitwise"]:
+        bad.append(f"the exact knob values moved the image by "
+                   f"{(same - exact_img).abs().max().item():.3e}")
+
+    # shallow_forward on the deep feature of the same (sample, t)
+    with torch.no_grad():
+        g2 = torch.Generator(device=dev).manual_seed(1)
+        unet = pipe.unet
+        x2 = torch.cat([req[3], req[3]]).contiguous(memory_format=torch.channels_last)
+        t2 = torch.full((2,), 499, dtype=torch.long, device=dev)
+        ctx = torch.randn((2, cfg.clip.max_positions, cfg.clip.hidden_size), generator=g2,
+                          device=dev).to(pipe.dtype)
+        # the skips' sizes: conv_in's, then each block's, halved after each downsampler
+        hw, sizes = x2.shape[-1], [x2.shape[-1]]
+        for i in range(len(cfg.unet.block_out_channels)):
+            sizes += [hw] * cfg.unet.layers_per_block
+            if i < len(cfg.unet.block_out_channels) - 1:
+                hw //= 2
+                sizes.append(hw)
+        def noise(c, s):
+            x = 0.1 * torch.randn((2, c, s, s), generator=g2, device=dev)
+            return x.to(pipe.dtype).contiguous(memory_format=torch.channels_last)
+
+        down = [noise(c, s) for c, s in zip(unet.skip_channels(), sizes)]
+        mid = noise(cfg.unet.block_out_channels[-1], hw)
+        out, deep = unet(params["unet"], x2, t2, ctx, down_block_additional_residuals=down,
+                         mid_block_additional_residual=mid, return_deep=True)
+        shallow = unet.shallow_forward(params["unet"], x2, t2, ctx, deep,
+                                       down_block_additional_residuals=down)
+        rec["shallow_forward_equal_bitwise"] = bool(torch.equal(shallow, out))
+        rec["shallow_forward_max_abs_diff"] = (shallow - out).abs().max().item()
+        if not rec["shallow_forward_equal_bitwise"]:
+            bad.append(f"shallow_forward differs from the UNet by "
+                       f"{rec['shallow_forward_max_abs_diff']:.3e} at the same (sample, t)")
+
+    # CFG off against guidance 1.0, 4 steps
+    off = pipe(params, *req[:3], latents=req[3], num_inference_steps=4, cfg_interval=(0.0, 0.0))
+    g1 = pipe(params, *req[:3], latents=req[3], num_inference_steps=4, guidance_scale=1.0)
+    rec["cfg_off_vs_guidance_1_max_abs_diff"] = (off - g1).abs().max().item()
+    if not rec["cfg_off_vs_guidance_1_max_abs_diff"] <= CFG_OFF_TOL:
+        bad.append(f"cfg_interval (0, 0) is {rec['cfg_off_vs_guidance_1_max_abs_diff']:.3e} "
+                   f"off guidance 1.0 (tol {CFG_OFF_TOL})")
+
+    # turbo through the kernels against the ops' plain versions, 4 steps
+    turbo = tryon.apply_serving_mode(tryon.parse_args(
+        ["--subject", "s", "--clothes1", "a", "--clothes2", "b", "--mode", "turbo"]))
+    turbo_pipe, turbo_kw = pipe_for("unipc", float(turbo.tome)), tryon.serving_kwargs(turbo)
+    out_k = turbo_pipe(params, *req[:3], latents=req[3], num_inference_steps=4, **turbo_kw)
+    saved = (layers.norm_act_conv3x3, attention.flash_attention)
+    layers.norm_act_conv3x3 = fused_conv.norm_act_conv3x3_reference
+    attention.flash_attention = flash.flash_attention_reference
+    try:
+        before = dict(kernels.LAUNCHES)
+        out_p = turbo_pipe(params, *req[:3], latents=req[3], num_inference_steps=4, **turbo_kw)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES != before:
+            fail("serving: the plain turbo run launched a kernel")
+    finally:
+        layers.norm_act_conv3x3, attention.flash_attention = saved
+    kernels.reset_launches()
+    check_images(out_k, 1, "serving turbo kernels")
+    check_images(out_p, 1, "serving turbo plain")
+    rec["turbo_kernels_vs_plain_max_abs_diff"] = (out_k - out_p).abs().max().item()
+    if not rec["turbo_kernels_vs_plain_max_abs_diff"] <= E2E_TOL:
+        bad.append(f"turbo through the kernels is "
+                   f"{rec['turbo_kernels_vs_plain_max_abs_diff']:.3e} off the plain versions "
+                   f"(tol {E2E_TOL})")
+
+    # ToMe's ranking on the card against the CPU, full-width bf16 metrics
+    g3 = torch.Generator(device=dev).manual_seed(2)
+    rows_equal = {}
+    for ratio in (0.5, 0.3):
+        metric = torch.randn((2, 4096, 320), generator=g3, device=dev).to(torch.bfloat16)
+        r = int(ratio * 4096)
+        rows = []
+        for d in (dev, torch.device("cpu")):
+            _, unmerge, r_eff = tome.build_merge(metric.to(d), 64, 64, r)
+            ids = torch.arange(4096 - r_eff, dtype=torch.float32, device=d)
+            rows.append(unmerge(ids[None, :, None].expand(2, -1, 1)).cpu())
+        rows_equal[str(ratio)] = bool(torch.equal(*rows))
+        if not rows_equal[str(ratio)]:
+            bad.append(f"ToMe {ratio}: the merge rows on the card differ from the CPU's")
+    rec["tome_rows_card_equal_cpu"] = rows_equal
+    rec["launches_total"] = totals
+
+    print(f"serving checks ({card}): exact knob values bit for bit "
+          f"{rec['exact_knobs_equal_bitwise']}; shallow_forward vs UNet at the same (sample, "
+          f"t) bit for bit {rec['shallow_forward_equal_bitwise']} (max "
+          f"{rec['shallow_forward_max_abs_diff']:.3e}); cfg_interval (0, 0) vs guidance 1.0 "
+          f"(4 steps) max_abs_diff {rec['cfg_off_vs_guidance_1_max_abs_diff']:.4e} (tol "
+          f"{CFG_OFF_TOL}); turbo kernels vs plain (4 steps) max_abs_diff "
+          f"{rec['turbo_kernels_vs_plain_max_abs_diff']:.4e} (tol {E2E_TOL}); ToMe rows card "
+          f"== CPU {rows_equal}", flush=True)
+    print(json.dumps({"serving": rec}), flush=True)
+    if bad:
+        fail("serving: " + "; ".join(bad))
+    return totals
 
 
 # ----------------------------------------------------- photos -> try-on
@@ -1863,8 +2155,6 @@ def grad_check_phase(dev, built):
 def profile_train_step(dev, built, out_dir: str) -> None:
     """One training step (micro-batch 2) under torch.profiler: device time
     by kernel family; the table goes to ``out_dir/profile_train.txt``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from edgestyle_tpu_torch.apps import train
     from edgestyle_tpu_torch.training import train_step
 
@@ -1876,33 +2166,47 @@ def profile_train_step(dev, built, out_dir: str) -> None:
     step = train_step.make_train_step(pipe, tcfg)
     step(state, frozen, batch, train_step.sample_draws(pipe, tcfg, batch, gen))  # warm-up
     draws = train_step.sample_draws(pipe, tcfg, batch, gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, frozen, batch, draws)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = _device_rows(prof)
-    busy = sum(r[0] for r in rows) / 1e3
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
-        f.write(f"wall {wall:.4f} s, device busy {busy:.4f} s\n")
-        for ms, n, key in rows:
-            f.write(f"{ms:12.3f} ms {n:7d}x  {key}\n")
+    rows, wall, busy = profiled(lambda: step(state, frozen, batch, draws), out_dir,
+                                "profile_train.txt")
     print(f"profile (one training step, micro-batch 2, profiler on): wall {wall:.3f} s, device "
           f"busy {busy:.3f} s ({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} device "
           f"launches", flush=True)
     _print_families(rows, busy)
 
 
-def _print_families(rows, busy: float) -> None:
-    """Device time and launches by kernel family."""
+def profiled(fn, out_dir: str, file_name: str):
+    """One call of fn under torch.profiler -> (device rows (ms, launches,
+    kernel), wall s, device busy s); the table goes to out_dir/file_name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, file_name), "w") as f:
+        f.write(f"wall {wall:.4f} s, device busy {busy:.4f} s\n")
+        for ms, n, key in rows:
+            f.write(f"{ms:12.3f} ms {n:7d}x  {key}\n")
+    return rows, wall, busy
+
+
+def _families(rows) -> dict:
+    """{kernel family: (device ms, launches)}."""
     families = {}
     for ms, n, key in rows:
-        fam = _family(key)
-        t, c = families.get(fam, (0.0, 0))
-        families[fam] = (t + ms, c + n)
-    for fam, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        t, c = families.get(_family(key), (0.0, 0))
+        families[_family(key)] = (t + ms, c + n)
+    return families
+
+
+def _print_families(rows, busy: float) -> None:
+    """Device time and launches by kernel family."""
+    for fam, (ms, n) in sorted(_families(rows).items(), key=lambda kv: -kv[1][0]):
         print(f"  {fam}: {ms:.3f} ms {100 * ms / 1e3 / busy:5.1f}% {n}x", flush=True)
 
 
@@ -1937,7 +2241,8 @@ def _family(key: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also profile one B=1 generation; write the table under DIR")
+                    help="also profile one B=1 generation, one request of each serving run "
+                         "and one training step; write the tables under DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1983,6 +2288,7 @@ def main() -> int:
         profile_phase(dev, pipe, params, gen, args.profile)
     e2e_phase(dev, pipe, params, gen)
     tryon_launches = tryon_system_phase(dev, pipe, params, card)
+    serving_launches_total = serving_phase(dev, pipe, params, gen, card, args.profile)
     del pipe, params
     torch.cuda.empty_cache()
 
@@ -2001,7 +2307,8 @@ def main() -> int:
              "fused_gn_silu_conv3x3": "generation", "flash_bwd_dq": "training",
              "flash_bwd_dkv": "training"}
     by_path = {"generation": launches, "tryon_system": tryon_launches,
-               "training": train_launches, "pretrained_tryon": pretrained_tryon_launches,
+               "serving": serving_launches_total, "training": train_launches,
+               "pretrained_tryon": pretrained_tryon_launches,
                "pretrained_training": pretrained_train_launches}
     out = []
     for name, source, replaces, shapes in records:

@@ -12,12 +12,17 @@ decoder-only heads); the generation's weights from diffusers/HF
 directories (``--pretrained_model`` with ``unet/`` and ``text_encoder/``,
 ``--vae``, ``--openpose_controlnet``) and the trained set
 (``--edgestyle_checkpoint``: a reference-layout directory or an exported
-file; core/pretrained.py); the tokenizer, ``--fused`` and the exact UniPC
-generation. Every flag that asks for something not ported raises
-``NotImplementedError`` naming its ROADMAP item (:func:`refuse_unported`);
-with ``--random_init`` the weight flags are ignored, as in the JAX app.
+file; core/pretrained.py); the tokenizer, ``--fused``; the serving knobs
+(``--scheduler``, ``--tome``, ``--cfg_interval``, the cache flags) and
+their ``--mode`` presets (:func:`apply_serving_mode`), and ``--lcm_lora``
+adapters merged into the UNet. Every flag that asks for something not
+ported raises ``NotImplementedError`` naming its ROADMAP item
+(:func:`refuse_unported`); with ``--random_init`` the weight flags are
+ignored, as in the JAX app.
 
     python -m edgestyle_tpu_torch.apps.tryon --random_init \\
+        --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
+    python -m edgestyle_tpu_torch.apps.tryon --random_init --mode turbo \\
         --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
     python -m edgestyle_tpu_torch.apps.tryon --pretrained_model rv51 --vae sd-vae-ft-mse \\
         --openpose_controlnet openpose --edgestyle_checkpoint trained \\
@@ -28,6 +33,7 @@ with ``--random_init`` the weight flags are ignored, as in the JAX app.
 from __future__ import annotations
 
 import argparse
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,13 +56,83 @@ from edgestyle_tpu_torch.models.openpose import (
     smooth_heatmaps,
 )
 from edgestyle_tpu_torch.pipelines.preprocess import HEAD_NAMES, TryOnPreprocessor, copy_tree
-from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
+from edgestyle_tpu_torch.pipelines.tryon import SCHEDULERS, EdgeStylePipeline, PipelineConfig
+from edgestyle_tpu_torch.training.checkpoint import import_safetensors
+from edgestyle_tpu_torch.training.distill import apply_lcm_lora
 
 ROADMAP_KNOBS = "ROADMAP.md Queue 1 item 12"
 ROADMAP_MODELS = "ROADMAP.md Queue 1 item 14"
 ROADMAP_APPS = "ROADMAP.md Queue 1 item 15"
-SERVING_MODES = ("exact", "conservative", "quality", "aggressive", "turbo", "lcm")
 CANVAS = 512  # pose renders and SAM run at the 512 px working size
+
+# The serving presets of the JAX app: named bundles of the opt-in
+# approximation knobs; "exact" is the reference's semantics. A preset fills
+# only the knobs the user left unset (the knob flags parse to None), so an
+# explicit flag wins even at its exact value (``--mode turbo --tome 0``).
+SERVING_MODES = {
+    "exact": {},
+    "conservative": {"tome": 0.5},
+    "quality": {"controlnet_cache_interval": 2},
+    # a front-loaded ControlNet refresh schedule (DeepCache's non-uniform
+    # sampling), for the 20-step default
+    "aggressive": {"controlnet_cache_steps": (0, 1, 2, 4, 7, 11, 16)},
+    # a draft mode
+    "turbo": {"cfg_interval": (0.0, 0.4), "controlnet_cache_interval": 3,
+              "unet_cache_interval": 2, "tome": 0.5},
+    # few-step consistency sampling for --lcm_lora adapters: guidance is
+    # baked in at distillation, so CFG is off
+    "lcm": {"cfg_interval": (0.0, 0.0), "scheduler": "lcm", "steps": 4},
+}
+_MODE_KNOB_DEFAULTS = {
+    "cfg_interval": (0.0, 1.0),
+    "controlnet_cache_interval": 1,
+    "unet_cache_interval": 1,
+    "tome": 0.0,
+    "scheduler": "unipc",
+    "steps": 20,
+}
+
+
+def apply_serving_mode(args):
+    """Fold ``args.mode``'s preset into the knob attributes that are still
+    None, then give every knob left unset its exact value. An explicit
+    interval beats a preset's refresh schedule (the two are exclusive); at
+    an explicit ``--steps`` a preset's schedule keeps only its in-range
+    steps (a user's own schedule stays as given, and the pipeline checks
+    it). Idempotent."""
+    mode = getattr(args, "mode", None) or "exact"
+    if mode not in SERVING_MODES:
+        raise ValueError(f"unknown serving mode {mode!r} (choose from {sorted(SERVING_MODES)})")
+    for knob, value in SERVING_MODES[mode].items():
+        if knob in ("controlnet_cache_steps", "unet_cache_steps") and (
+                getattr(args, knob.replace("_steps", "_interval"), None) is not None):
+            continue
+        if getattr(args, knob, None) is None:
+            if knob in ("controlnet_cache_steps", "unet_cache_steps"):
+                steps = getattr(args, "steps", None)
+                if steps is not None:
+                    value = tuple(s for s in value if s < steps)
+            setattr(args, knob, value)
+    for knob, default in _MODE_KNOB_DEFAULTS.items():
+        if hasattr(args, knob) and getattr(args, knob) is None:
+            setattr(args, knob, default)
+    return args
+
+
+def serving_kwargs(args) -> Dict:
+    """The pipeline call's knob arguments from ``args`` (after
+    :func:`apply_serving_mode`), without those at their exact value."""
+    kw = {}
+    for name in ("controlnet_cache_interval", "unet_cache_interval"):
+        if int(getattr(args, name, None) or 1) > 1:
+            kw[name] = int(getattr(args, name))
+    for name in ("controlnet_cache_steps", "unet_cache_steps"):
+        if getattr(args, name, None):
+            kw[name] = tuple(int(s) for s in getattr(args, name))
+    ci = getattr(args, "cfg_interval", None) or (0.0, 1.0)
+    if (float(ci[0]), float(ci[1])) != (0.0, 1.0):
+        kw["cfg_interval"] = (float(ci[0]), float(ci[1]))
+    return kw
 
 
 def parse_args(argv=None):
@@ -82,8 +158,14 @@ def parse_args(argv=None):
     p.add_argument("--bodypose_checkpoint", type=str, default=None)
     p.add_argument("--exported_dir", type=str, default=None)
     p.add_argument("--int8_scales", type=str, default=None)
-    p.add_argument("--scheduler", type=str, default=None, choices=("unipc", "dpm++", "lcm"))
-    p.add_argument("--lcm_lora", type=str, default=None)
+    p.add_argument("--scheduler", type=str, default=None, choices=("unipc", "dpm++", "lcm"),
+                   help="denoise sampler: unipc (the reference app's), dpm++ "
+                        "(DPM-Solver++ 2M) or lcm (few-step, for --lcm_lora; pair it with "
+                        "--cfg_interval 0 0)")
+    p.add_argument("--lcm_lora", type=str, default=None,
+                   help="LCM-LoRA adapters (a safetensors file whose 'lcm_lora' tree "
+                        "training/checkpoint.py::import_safetensors reads) merged into "
+                        "the UNet")
     p.add_argument("--tokenizer_dir", type=str, default=None)
     p.add_argument("--clip_model", type=str, default=None)
     p.add_argument("--random_init", action="store_true")
@@ -94,9 +176,12 @@ def parse_args(argv=None):
     p.add_argument("--use_agnostic_images", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--fused", action="store_true",
                    help="masks, pose renders and generation in one call (pipelines/full.py)")
-    p.add_argument("--steps", type=int, default=None, help="denoise steps (default 20)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="denoise steps (default 20; --mode lcm: 4)")
     p.add_argument("--guidance", type=float, default=3.5)
-    p.add_argument("--mode", type=str, default="exact", choices=SERVING_MODES)
+    p.add_argument("--mode", type=str, default="exact", choices=sorted(SERVING_MODES),
+                   help="serving preset of the approximation knobs; a knob flag overrides "
+                        "it; exact is the reference's semantics")
     p.add_argument("--controlnet_cache_interval", type=int, default=None)
     p.add_argument("--unet_cache_interval", type=int, default=None)
     p.add_argument("--controlnet_cache_steps", type=int, nargs="+", default=None)
@@ -110,30 +195,14 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for the first flag
-    that asks for something this port does not carry yet. A knob set to its
-    exact-semantics value (``--mode exact``, ``--tome 0``, an interval of 1,
-    ``--cfg_interval 0 1``, ``--scheduler unipc``) asks for nothing."""
-    def get(name):
-        return getattr(args, name, None)
-
-    knobs = {
-        "--mode": get("mode") not in (None, "exact"),
-        "--controlnet_cache_interval": get("controlnet_cache_interval") not in (None, 1),
-        "--unet_cache_interval": get("unet_cache_interval") not in (None, 1),
-        "--controlnet_cache_steps": get("controlnet_cache_steps") is not None,
-        "--unet_cache_steps": get("unet_cache_steps") is not None,
-        "--cfg_interval": get("cfg_interval") is not None
-        and tuple(map(float, get("cfg_interval"))) != (0.0, 1.0),
-        "--tome": get("tome") not in (None, 0.0),
-        "--int8_scales": get("int8_scales") is not None,
-        "--scheduler": get("scheduler") not in (None, "unipc"),
-    }
-    refused = [(flag, ROADMAP_KNOBS) for flag, asked in knobs.items() if asked]
-    refused += [(f"--{n}", ROADMAP_MODELS) for n in ("lcm_lora", "clip_model") if get(n)]
-    refused += [("--exported_dir", ROADMAP_APPS)] if get("exported_dir") else []
+    that asks for something this port does not carry yet."""
+    refused = [(flag, item) for flag, item in (("int8_scales", ROADMAP_KNOBS),
+                                               ("clip_model", ROADMAP_MODELS),
+                                               ("exported_dir", ROADMAP_APPS))
+               if getattr(args, flag, None)]
     if refused:
         flag, item = refused[0]
-        raise NotImplementedError(f"{flag} is not ported yet ({item})")
+        raise NotImplementedError(f"--{flag} is not ported yet ({item})")
 
 
 def load_image_512(path: str) -> np.ndarray:
@@ -206,22 +275,36 @@ class TryOnSystem:
 
     ``pipe`` and ``gen_params`` may hand in a generation pipeline and its
     params (e.g. one already built); by default a full-width bf16 SD1.5
-    pipeline is built and, with ``random_init``, initialised after the pose
-    net and SAM from the same generator."""
+    pipeline is built, with ``args``' scheduler and ToMe ratio, and, with
+    ``random_init``, initialised after the pose net and SAM from the same
+    generator. ``args``' serving mode and knobs (:func:`apply_serving_mode`)
+    go to every generation; ``--lcm_lora`` adapters are merged into the
+    UNet."""
 
     pose_size = 184  # the pose net's working scale (the original's 0.5 * 368)
+    knobs: Dict = {}  # the pipeline call's serving knobs (serving_kwargs); {} is exact
 
     def __init__(self, seed: int = 0, random_init: bool = True, args=None,
                  device: DeviceLike = "cuda", pipe: Optional[EdgeStylePipeline] = None,
                  gen_params: Optional[Dict] = None):
         if args is not None:
             refuse_unported(args)
+            apply_serving_mode(args)
+            self.knobs = serving_kwargs(args)
         self.device = resolve_device(device)
         self.use_agnostic = bool(getattr(args, "use_agnostic_images", False))
         self.pose_net = BodyPoseNet()
         self.preproc = TryOnPreprocessor(SAM_L2, dtype=torch.bfloat16)
-        self.pipe = pipe if pipe is not None else EdgeStylePipeline(
-            PipelineConfig(dtype="bfloat16"), device=self.device)
+        scheduler = getattr(args, "scheduler", None) or "unipc"
+        tome = float(getattr(args, "tome", None) or 0.0)
+        if pipe is None:
+            pipe = EdgeStylePipeline(PipelineConfig(dtype="bfloat16", scheduler=scheduler),
+                                     device=self.device, tome=tome)
+        elif args is not None and (type(pipe.scheduler) is not SCHEDULERS[scheduler]
+                                   or (pipe.tome.ratio if pipe.tome else 0.0) != tome):
+            raise ValueError(f"the pipeline handed in does not run --scheduler {scheduler} "
+                             f"--tome {tome}")
+        self.pipe = pipe
         self.gen_params = gen_params
         if random_init:
             gen = make_generator(seed, self.device)
@@ -245,6 +328,16 @@ class TryOnSystem:
                     args.pretrained_model, args.vae, args.openpose_controlnet,
                     edgestyle_checkpoint=args.edgestyle_checkpoint, pipe=self.pipe,
                     generator=make_generator(seed, self.device))
+        lcm_path = getattr(args, "lcm_lora", None)
+        if lcm_path:
+            self._check_gen_params()
+            adapters = import_safetensors(lcm_path, self.device)["lcm_lora"]
+            self.gen_params = dict(self.gen_params,
+                                   unet=apply_lcm_lora(self.gen_params["unet"], adapters))
+        elif scheduler == "lcm":
+            warnings.warn("--scheduler lcm (or --mode lcm) without --lcm_lora: few-step "
+                          "sampling of undistilled weights gives collapsed images; pass "
+                          "distilled LCM-LoRA adapters for real serving", stacklevel=2)
 
     # -------------------------------------------------------------- pose
     def detect_pose(self, img01: np.ndarray) -> Tuple[Optional[np.ndarray], np.ndarray]:
@@ -292,7 +385,7 @@ class TryOnSystem:
                 to_norm(cond["clothes2"]), to01(cond["clothes2_pose"])]
         out = self.pipe(self.gen_params, prompt_ids, neg_ids, imgs,
                         generator=make_generator(seed, self.device), num_inference_steps=steps,
-                        guidance_scale=guidance)
+                        guidance_scale=guidance, **self.knobs)
         return _hwc(out)[0]
 
     def _check_gen_params(self) -> None:
@@ -381,7 +474,7 @@ def main(argv=None, device: DeviceLike = "cuda") -> np.ndarray:
         from edgestyle_tpu_torch.data.tokenizer import empty_prompt_ids
 
         ids = neg = empty_prompt_ids()
-    steps = args.steps or 20
+    steps = args.steps  # set by the serving mode: 20, or 4 for lcm
 
     if args.fused:
         from edgestyle_tpu_torch.pipelines.full import FusedTryOn

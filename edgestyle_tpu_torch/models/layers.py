@@ -19,6 +19,7 @@ from edgestyle_tpu_torch.core.params import param, sub
 from edgestyle_tpu_torch.ops.attention import multi_head_attention
 from edgestyle_tpu_torch.ops.fused_conv import norm_act_conv3x3
 from edgestyle_tpu_torch.ops.norms import group_norm, layer_norm
+from edgestyle_tpu_torch.ops.tome import build_merge
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -166,22 +167,37 @@ def geglu_ff(p, x, dtype):
     return dense(sub(p, "proj_out"), h, c, dtype)
 
 
-def transformer_block(p, x, context, num_heads: int, dtype):
-    """LN->self-attn, LN->cross-attn, LN->GEGLU FF, all residual."""
-    x = x + cross_attention(sub(p, "attn1"), layer_norm_block(sub(p, "norm1"), x), None,
-                            num_heads, dtype)
+def transformer_block(p, x, context, num_heads: int, dtype, hw=None, tome=None):
+    """LN->self-attn, LN->cross-attn, LN->GEGLU FF, all residual. With a
+    ``tome`` config (ops/tome.py) that applies at this level's token count
+    and the level's ``hw``, the self-attention (and with ``merge_mlp`` the
+    feed-forward) runs on merged tokens, matched on the block's input."""
+    n = x.shape[1]
+    if tome is not None and hw is not None and tome.applies(n):
+        merge, unmerge, _ = build_merge(x, hw[0], hw[1], int(tome.ratio * n))
+        x = x + unmerge(cross_attention(sub(p, "attn1"),
+                                        merge(layer_norm_block(sub(p, "norm1"), x)), None,
+                                        num_heads, dtype))
+    else:
+        merge = None
+        x = x + cross_attention(sub(p, "attn1"), layer_norm_block(sub(p, "norm1"), x), None,
+                                num_heads, dtype)
     x = x + cross_attention(sub(p, "attn2"), layer_norm_block(sub(p, "norm2"), x), context,
                             num_heads, dtype)
+    if merge is not None and tome.merge_mlp:
+        return x + unmerge(geglu_ff(sub(p, "ff"), merge(layer_norm_block(sub(p, "norm3"), x)),
+                                    dtype))
     return x + geglu_ff(sub(p, "ff"), layer_norm_block(sub(p, "norm3"), x), dtype)
 
 
-def transformer_2d(p, x, context, num_heads: int, dtype, depth: int = 1):
+def transformer_2d(p, x, context, num_heads: int, dtype, depth: int = 1, tome=None):
     """GN -> 1x1 proj_in -> transformer blocks over the h*w tokens -> 1x1
     proj_out -> residual (SD1.5: use_linear_projection=False, depth 1)."""
     b, c, h, w = x.shape
     y = to_tokens(group_norm_block(sub(p, "norm"), x, 32, 1e-6))
     y = pointwise(sub(p, "proj_in"), y, c, dtype)
     for i in range(depth):
-        y = transformer_block(sub(p, f"blocks_{i}"), y, context, num_heads, dtype)
+        y = transformer_block(sub(p, f"blocks_{i}"), y, context, num_heads, dtype, hw=(h, w),
+                              tome=tome)
     y = pointwise(sub(p, "proj_out"), y, c, dtype)
     return from_tokens(y, h, w) + x

@@ -109,16 +109,17 @@ def pattern_groups(pattern: Sequence[Optional[int]] = CONTROLNET_PATTERN):
 
 class EdgeStyleMultiControlNet:
     """params: {'static', 'lora_0', 'lora_1', ..., 'fusion'}; cond inputs
-    are the precomputed 320-channel embeddings."""
+    are the precomputed 320-channel embeddings. ``tome`` (ops/tome.py)
+    goes to the trunks' transformer blocks."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig(),
                  pattern: Sequence[Optional[int]] = CONTROLNET_PATTERN,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tome=None):
         self.cfg = cfg
         self.pattern = tuple(pattern)
         self.groups = pattern_groups(pattern)
         self.dtype = dtype
-        self.branch = SD15UNet(cfg, controlnet_mode=True, dtype=dtype)
+        self.branch = SD15UNet(cfg, controlnet_mode=True, dtype=dtype, tome=tome)
         self.down_channels = tuple(self.branch.skip_channels())
 
     def __call__(self, params, sample, timesteps, encoder_hidden_states, cond_embeddings,

@@ -62,13 +62,16 @@ def cond_embedding(p, cond, channels: Sequence[int], out_channels: int, dtype):
 
 class SD15UNet:
     """The UNet; with ``controlnet_mode`` the same trunk is a ControlNet:
-    no up path, zero-conv heads, and a conditioning embedding input."""
+    no up path, zero-conv heads, and a conditioning embedding input.
+    ``tome`` (ops/tome.py::ToMeConfig, opt-in) merges tokens in every
+    transformer block whose level it applies to; None is the exact model."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig(), controlnet_mode: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tome=None):
         self.cfg = cfg
         self.controlnet_mode = controlnet_mode
         self.dtype = dtype
+        self.tome = tome
 
     def skip_channels(self):
         cfg = self.cfg
@@ -80,63 +83,119 @@ class SD15UNet:
                 out.append(ch)
         return out
 
+    def _time_embedding(self, p, timesteps, batch: int):
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(batch)
+        temb = timestep_embedding(timesteps, self.cfg.block_out_channels[0])
+        return timestep_mlp(sub(p, "time_embedding"), temb.to(self.dtype),
+                            self.cfg.time_embed_dim, self.dtype)
+
+    def _down_block(self, p, i: int, x, temb, context, run_downsample: bool = True):
+        """Down block i: its ResNet blocks (+ transformers), then its
+        downsampler unless it is the last block or ``run_downsample`` is
+        off (shallow_forward never reads the downsampled skip). Returns (x,
+        the block's skips)."""
+        cfg, dt = self.cfg, self.dtype
+        ch = cfg.block_out_channels[i]
+        last = i == len(cfg.block_out_channels) - 1
+        blk = sub(p, f"down_blocks_{i}")
+        skips = []
+        for j in range(cfg.layers_per_block):
+            x = resnet_block(sub(blk, f"resnets_{j}"), x, temb, ch, dt)
+            if not last:
+                x = transformer_2d(sub(blk, f"attentions_{j}"), x, context, cfg.num_heads, dt,
+                                   tome=self.tome)
+            skips.append(x)
+        if not last and run_downsample:
+            x = downsample(sub(blk, "downsamplers_0"), x, ch, dt)
+            skips.append(x)
+        return x, skips
+
+    def _up_block(self, p, i: int, x, skips, temb, context):
+        """Up block i on x and its 1 + layers_per_block skips (popped from
+        the end)."""
+        cfg, dt = self.cfg, self.dtype
+        rev = tuple(reversed(cfg.block_out_channels))
+        blk = sub(p, f"up_blocks_{i}")
+        for j in range(cfg.layers_per_block + 1):
+            x = torch.cat([x, skips.pop()], dim=1)
+            x = resnet_block(sub(blk, f"resnets_{j}"), x, temb, rev[i], dt)
+            if i > 0:
+                x = transformer_2d(sub(blk, f"attentions_{j}"), x, context, cfg.num_heads, dt,
+                                   tome=self.tome)
+        if i < len(rev) - 1:
+            x = upsample(sub(blk, "upsamplers_0"), x, rev[i], dt)
+        return x
+
+    def _head(self, p, x):
+        x = group_norm_block(sub(p, "conv_norm_out"), x, 32, self.cfg.norm_eps, act=F.silu)
+        return conv(sub(p, "conv_out"), x, self.cfg.out_channels, 3, self.dtype).float()
+
     def _trunk(self, p, sample, timesteps, context, cond_emb=None):
         cfg, dt = self.cfg, self.dtype
         chs = cfg.block_out_channels
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(sample.shape[0])
-        temb = timestep_embedding(timesteps, chs[0])
-        temb = timestep_mlp(sub(p, "time_embedding"), temb.to(dt), cfg.time_embed_dim, dt)
+        temb = self._time_embedding(p, timesteps, sample.shape[0])
         context = context.to(dt)
         x = conv(sub(p, "conv_in"), sample, chs[0], 3, dt)
         if cond_emb is not None:
             x = x + cond_emb
         skips = [x]
-        for i, ch in enumerate(chs):
-            blk = sub(p, f"down_blocks_{i}")
-            last = i == len(chs) - 1
-            for j in range(cfg.layers_per_block):
-                x = resnet_block(sub(blk, f"resnets_{j}"), x, temb, ch, dt)
-                if not last:
-                    x = transformer_2d(sub(blk, f"attentions_{j}"), x, context, cfg.num_heads, dt)
-                skips.append(x)
-            if not last:
-                x = downsample(sub(blk, "downsamplers_0"), x, ch, dt)
-                skips.append(x)
+        for i in range(len(chs)):
+            x, s = self._down_block(p, i, x, temb, context)
+            skips += s
         mid = sub(p, "mid_block")
         x = resnet_block(sub(mid, "resnets_0"), x, temb, chs[-1], dt)
-        x = transformer_2d(sub(mid, "attentions_0"), x, context, cfg.num_heads, dt)
+        x = transformer_2d(sub(mid, "attentions_0"), x, context, cfg.num_heads, dt,
+                           tome=self.tome)
         x = resnet_block(sub(mid, "resnets_1"), x, temb, chs[-1], dt)
         return x, skips, temb
 
     def __call__(self, p, sample, timesteps, encoder_hidden_states,
                  down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
-                 mid_block_additional_residual: Optional[torch.Tensor] = None):
-        """Noise prediction (B, out_channels, h, w) fp32."""
+                 mid_block_additional_residual: Optional[torch.Tensor] = None,
+                 return_deep: bool = False):
+        """Noise prediction (B, out_channels, h, w) fp32. With
+        ``return_deep`` also the input to the last up block, the deep feature
+        that :meth:`shallow_forward` splices back on later steps."""
         if self.controlnet_mode:
             raise ValueError("use controlnet_forward for a ControlNet")
-        cfg, dt = self.cfg, self.dtype
         x, skips, temb = self._trunk(p, sample, timesteps, encoder_hidden_states)
         if down_block_additional_residuals is not None:
             skips = [s + r for s, r in zip(skips, down_block_additional_residuals)]
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual
+        ctx = encoder_hidden_states.to(self.dtype)
+        n_up = len(self.cfg.block_out_channels)
+        deep = None
+        for i in range(n_up):
+            if i == n_up - 1:
+                deep = x
+            x = self._up_block(p, i, x, skips, temb, ctx)
+        out = self._head(p, x)
+        return (out, deep) if return_deep else out
+
+    def shallow_forward(self, p, sample, timesteps, encoder_hidden_states, deep_feature,
+                        down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None):
+        """The DeepCache-style re-evaluation (opt-in serving approximation):
+        conv_in, down block 0 without its downsampler and the last up block
+        on ``deep_feature`` (``__call__(..., return_deep=True)`` at an
+        earlier step), then conv_norm_out / conv_out. Only the first 1 +
+        layers_per_block residuals are read; the deeper ones are baked into
+        ``deep_feature``. With ``deep_feature`` captured at the same
+        (sample, t) it returns ``__call__``'s output bit for bit."""
+        if self.controlnet_mode:
+            raise ValueError("shallow_forward is a UNet path, not a ControlNet one")
+        dt = self.dtype
+        temb = self._time_embedding(p, timesteps, sample.shape[0])
         ctx = encoder_hidden_states.to(dt)
-        rev = tuple(reversed(cfg.block_out_channels))
-        n = cfg.layers_per_block + 1
-        for i, ch in enumerate(rev):
-            blk = sub(p, f"up_blocks_{i}")
-            blk_skips, skips = skips[-n:], skips[:-n]
-            for j in range(n):
-                x = torch.cat([x, blk_skips.pop()], dim=1)
-                x = resnet_block(sub(blk, f"resnets_{j}"), x, temb, ch, dt)
-                if i > 0:
-                    x = transformer_2d(sub(blk, f"attentions_{j}"), x, ctx, cfg.num_heads, dt)
-            if i < len(rev) - 1:
-                x = upsample(sub(blk, "upsamplers_0"), x, ch, dt)
-        x = group_norm_block(sub(p, "conv_norm_out"), x, 32, cfg.norm_eps, act=F.silu)
-        x = conv(sub(p, "conv_out"), x, cfg.out_channels, 3, dt)
-        return x.float()
+        x = conv(sub(p, "conv_in"), sample, self.cfg.block_out_channels[0], 3, dt)
+        _, s = self._down_block(p, 0, x, temb, ctx, run_downsample=False)
+        skips = [x] + s
+        if down_block_additional_residuals is not None:
+            skips = [sk + r for sk, r in zip(skips, down_block_additional_residuals)]
+        n_up = len(self.cfg.block_out_channels)
+        x = self._up_block(p, n_up - 1, deep_feature.to(dt), skips, temb, ctx)
+        return self._head(p, x)
 
     def embed_cond(self, p, cond):
         """Raw conditioning image (B, 3, H, W) -> (B, 320, H/8, W/8)."""

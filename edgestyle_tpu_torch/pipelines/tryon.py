@@ -9,10 +9,16 @@ the fusion blocks, the UNet with the injected residuals and the CFG
 combine -> VAE decode -> [0, 1] images.
 
 Tensors are NCHW (channels_last); images (B, 3, H, W), latents
-(B, 4, H/8, W/8). The pipeline runs on ``device`` (default the card). The
-JAX package's serving knobs (int8 quant, ToMe, the ControlNet and UNet
-caches, ``cfg_interval``, the DPM++ and LCM samplers, ``generate_dp`` /
-``generate_tp``) are not ported yet; asking for one raises.
+(B, 4, H/8, W/8). The pipeline runs on ``device`` (default the card).
+
+The serving knobs of the JAX package are here too, each an opt-in
+approximation whose exact-semantics value runs the exact program: the
+samplers (``PipelineConfig.scheduler``: UniPC, DPM-Solver++ 2M, LCM), ToMe
+(``tome``), ``cfg_interval`` and the ControlNet-residual and UNet
+deep-feature caches (``controlnet_cache_interval`` / ``_steps``,
+``unet_cache_interval`` / ``_steps``). Not ported: int8 quantisation and
+``generate_dp`` / ``generate_tp`` (ROADMAP.md Queue 1 item 12); ``quant``
+other than None / "none" raises.
 """
 
 from __future__ import annotations
@@ -36,8 +42,15 @@ from edgestyle_tpu_torch.models.unet import (
     split_trunk_params,
 )
 from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from edgestyle_tpu_torch.ops.tome import ToMeConfig
 from edgestyle_tpu_torch.schedulers.ddpm import NoiseSchedule
+from edgestyle_tpu_torch.schedulers.dpmsolver import DPMSolverScheduler
+from edgestyle_tpu_torch.schedulers.lcm import LCMScheduler
 from edgestyle_tpu_torch.schedulers.unipc import UniPCScheduler
+
+ROADMAP_ITEM_12 = "ROADMAP.md Queue 1 item 12"
+SCHEDULERS = {"unipc": UniPCScheduler, "dpm++": DPMSolverScheduler,
+              "dpmsolver++": DPMSolverScheduler, "lcm": LCMScheduler}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +62,9 @@ class PipelineConfig:
     # conv-cond ControlNet; the 4-branch legacy layout is (0, None, 1, None)
     pattern: tuple = (0, None, 1, None, 1, None)
     dtype: str = "bfloat16"
+    # "unipc" (the reference app's), "dpm++" / "dpmsolver++" (DPM-Solver++
+    # 2M) or "lcm" (few-step sampling of LCM-LoRA weights; pair it with
+    # cfg_interval=(0.0, 0.0))
     scheduler: str = "unipc"
 
     @property
@@ -62,24 +78,31 @@ class PipelineConfig:
 
 class EdgeStylePipeline:
     """params: {'vae', 'clip', 'unet', 'controlnet': {'static', 'lora_0',
-    'lora_1', 'fusion'}}, in the port's layout (core/porting.py)."""
+    'lora_1', 'fusion'}}, in the port's layout (core/porting.py).
+
+    ``tome``: a merge ratio (0 is exact) or an ops/tome.py::ToMeConfig, for
+    the transformer blocks of the UNet and the ControlNet trunks."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(), device: DeviceLike = "cuda",
                  quant: Optional[str] = None, tome=None):
         if quant not in (None, "none"):
-            raise NotImplementedError(f"quant={quant!r} is not ported yet")
-        if tome is not None:
-            raise NotImplementedError("ToMe is not ported yet")
-        if cfg.scheduler != "unipc":
-            raise NotImplementedError(f"scheduler {cfg.scheduler!r} is not ported yet")
+            raise NotImplementedError(f"quant={quant!r} is not ported yet ({ROADMAP_ITEM_12})")
+        if isinstance(tome, (int, float)) and not isinstance(tome, bool):
+            tome = ToMeConfig(ratio=float(tome)) if float(tome) > 0 else None
+        if tome is not None and not isinstance(tome, ToMeConfig):
+            raise ValueError(f"tome must be a ratio or ToMeConfig, got {tome!r}")
+        if cfg.scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {cfg.scheduler!r} "
+                             f"(expected 'unipc', 'dpm++' or 'lcm')")
         self.cfg = cfg
+        self.tome = tome
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.vae = AutoencoderKL(cfg.vae, self.dtype)
         self.clip = CLIPTextEncoder(cfg.clip, self.dtype)
-        self.unet = SD15UNet(cfg.unet, dtype=self.dtype)
-        self.mcn = EdgeStyleMultiControlNet(cfg.unet, cfg.pattern, self.dtype)
-        self.scheduler = UniPCScheduler(NoiseSchedule.sd15())
+        self.unet = SD15UNet(cfg.unet, dtype=self.dtype, tome=tome)
+        self.mcn = EdgeStyleMultiControlNet(cfg.unet, cfg.pattern, self.dtype, tome=tome)
+        self.scheduler = SCHEDULERS[cfg.scheduler](NoiseSchedule.sd15())
         self.vae_downscale = 2 ** (len(cfg.vae.block_out_channels) - 1)
 
     # ------------------------------------------------------------------
@@ -161,53 +184,137 @@ class EdgeStylePipeline:
 
     # ------------------------------------------------------------------
     def _residual_step(self, params, context, embs, embs2, scales_i, b, guess_mode,
-                       sample, t: int):
+                       sample, t: int, use_cfg: bool = True):
         """The multi-branch ControlNet for one step, CFG-doubled to 2B rows.
         In guess mode only the conditional half runs; the uncond half gets
-        zero residuals."""
+        zero residuals. With ``use_cfg`` off (a CFG-off step of
+        ``cfg_interval``) only the conditional half runs, at B rows."""
         dev = sample.device
-        if guess_mode:
+        if not use_cfg or guess_mode:
             tb = torch.full((b,), t, dtype=torch.long, device=dev)
             down, mid = self.mcn(params["controlnet"], sample, tb, context[b:], embs, scales_i,
-                                 guess_mode=True)
+                                 guess_mode=guess_mode)
+            if not use_cfg:
+                return down, mid
             down = tuple(torch.cat([torch.zeros_like(d), d], dim=0) for d in down)
             return down, torch.cat([torch.zeros_like(mid), mid], dim=0)
         x2 = torch.cat([sample, sample], dim=0)
         t2 = torch.full((2 * b,), t, dtype=torch.long, device=dev)
         return self.mcn(params["controlnet"], x2, t2, context, embs2, scales_i)
 
+    def _eval_step(self, use_cfg: bool, params, context, embs, embs2, scales_i, g, b,
+                   guess_mode, sample, t: int, cache=None, refresh_cn: bool = True,
+                   refresh_deep: bool = True):
+        """One denoise-model evaluation: the ControlNets, the UNet and the
+        CFG combine; with ``use_cfg`` off both run at B rows on the
+        conditional context and the conditional prediction is the output
+        (CFG at guidance 1.0).
+
+        ``cache`` is None (the exact path) or a dict carried from step to
+        step, updated in place, with any of:
+          'cn'   -- the fused residuals at 2B rows, recomputed only on steps
+                    with ``refresh_cn``;
+          'deep' -- the UNet's deep feature at 2B rows, recaptured only on
+                    steps with ``refresh_deep``; the others run
+                    ``SD15UNet.shallow_forward`` on it.
+        A refresh on a CFG-off step stores its B rows in both halves (zeros
+        in the uncond half of the residuals in guess mode, as guess mode
+        mandates); a CFG-off step reads the conditional half."""
+        cn_cached = cache is not None and "cn" in cache
+        if refresh_cn or not cn_cached:
+            down, mid = self._residual_step(params, context, embs, embs2, scales_i, b,
+                                            guess_mode, sample, t, use_cfg)
+            if cn_cached and use_cfg:
+                cache["cn"] = (down, mid)
+            elif cn_cached:
+                pad = torch.zeros_like if guess_mode else (lambda x: x)
+                cache["cn"] = (tuple(torch.cat([pad(x), x], dim=0) for x in down),
+                               torch.cat([pad(mid), mid], dim=0))
+        elif use_cfg:
+            down, mid = cache["cn"]
+        else:
+            down, mid = tuple(x[b:] for x in cache["cn"][0]), cache["cn"][1][b:]
+        dev = sample.device
+        rows = 2 * b if use_cfg else b
+        x2 = torch.cat([sample, sample], dim=0) if use_cfg else sample
+        t2 = torch.full((rows,), t, dtype=torch.long, device=dev)
+        ctx = context if use_cfg else context[b:]
+        if cache is not None and "deep" in cache:
+            if refresh_deep:
+                noise, deep = self.unet(params["unet"], x2, t2, ctx,
+                                        down_block_additional_residuals=down,
+                                        mid_block_additional_residual=mid, return_deep=True)
+                cache["deep"] = deep if use_cfg else torch.cat([deep, deep], dim=0)
+            else:
+                deep = cache["deep"] if use_cfg else cache["deep"][b:]
+                noise = self.unet.shallow_forward(params["unet"], x2, t2, ctx, deep,
+                                                  down_block_additional_residuals=down)
+        else:
+            noise = self.unet(params["unet"], x2, t2, ctx,
+                              down_block_additional_residuals=down,
+                              mid_block_additional_residual=mid)
+        if not use_cfg:
+            return noise.float()
+        uncond, cond = noise.chunk(2, dim=0)
+        return uncond + g * (cond - uncond)
+
     def _generate(self, params, prompt_ids, negative_prompt_ids, cond_images, generator,
                   num_inference_steps: int, guidance_scale, scales: np.ndarray, latents,
-                  guess_mode: bool):
+                  guess_mode: bool, cfg_on=None, cn_sched=None, deep_sched=None):
+        """``cfg_on``: None (CFG every step, the exact program), "off" (no
+        step) or a (steps,) host bool mask; ``cn_sched`` / ``deep_sched``:
+        None (no cache) or (steps,) host bool refresh masks, True at step 0
+        (:meth:`_schedules`)."""
         cfg = self.cfg
         dev = self.device
         b = prompt_ids.shape[0]
         context = self.encode_prompt(params, prompt_ids, negative_prompt_ids)
         embs = self.embed_cond_images(params, cond_images)
         embs2 = [torch.cat([e, e], dim=0) for e in embs]
-        plan = self.scheduler.plan(num_inference_steps)
         if latents is None:
             h = cond_images[0].shape[2] // self.vae_downscale
             w = cond_images[0].shape[3] // self.vae_downscale
             latents = torch.randn((b, cfg.unet.in_channels, h, w), generator=generator,
                                   device=dev, dtype=torch.float32)
+        if isinstance(self.scheduler, LCMScheduler):
+            # the re-noise continues the latents' generator (or a fresh one
+            # from seed 0, as the JAX pipeline's default key)
+            if generator is None:
+                generator = torch.Generator(device=dev)
+                generator.manual_seed(0)
+            plan = self.scheduler.plan(num_inference_steps, generator)
+        else:
+            plan = self.scheduler.plan(num_inference_steps)
         latents = latents.to(dev, torch.float32).contiguous(memory_format=torch.channels_last)
         g = torch.as_tensor(guidance_scale, dtype=torch.float32, device=dev)
         if g.ndim:
             g = g.reshape(b, 1, 1, 1)
 
-        def model_fn(sample, t, i):
-            down, mid = self._residual_step(params, context, embs, embs2, scales[i], b,
-                                            guess_mode, sample, t)
-            x2 = torch.cat([sample, sample], dim=0)
-            t2 = torch.full((2 * b,), t, dtype=torch.long, device=dev)
-            noise = self.unet(params["unet"], x2, t2, context,
-                              down_block_additional_residuals=down,
-                              mid_block_additional_residual=mid)
-            uncond, cond = noise.chunk(2, dim=0)
-            return uncond + g * (cond - uncond)
+        def use_cfg(i):
+            return True if cfg_on is None else (False if isinstance(cfg_on, str)
+                                                else bool(cfg_on[i]))
 
-        final = self.scheduler.sample_loop(plan, model_fn, latents)
+        if cn_sched is None and deep_sched is None:
+            def model_fn(sample, t, i):
+                return self._eval_step(use_cfg(i), params, context, embs, embs2, scales[i], g,
+                                       b, guess_mode, sample, t)
+
+            final = self.scheduler.sample_loop(plan, model_fn, latents)
+        else:
+            def model_fn(sample, t, i, cache):
+                out = self._eval_step(
+                    use_cfg(i), params, context, embs, embs2, scales[i], g, b, guess_mode,
+                    sample, t, cache, refresh_cn=cn_sched is None or bool(cn_sched[i]),
+                    refresh_deep=deep_sched is None or bool(deep_sched[i]))
+                return out, cache
+
+            # step 0 always refreshes, so the caches start empty
+            cache = {}
+            if cn_sched is not None:
+                cache["cn"] = None
+            if deep_sched is not None:
+                cache["deep"] = None
+            final = self.scheduler.sample_loop(plan, model_fn, latents, model_state=cache)
         img = self.vae.decode(params["vae"], final / cfg.vae.scaling_factor)
         return torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
 
@@ -223,12 +330,22 @@ class EdgeStylePipeline:
         """Generate try-on images (B, 3, H, W) in [0, 1]. Defaults follow the reference app: 20 steps, guidance
         3.5. ``guidance_scale`` is a scalar or (B,); the control guidance
         window becomes a per-step keep mask folded into the per-branch
-        conditioning scales on the host (``_step_scales``)."""
-        if (controlnet_cache_interval != 1 or unet_cache_interval != 1
-                or controlnet_cache_steps is not None or unet_cache_steps is not None):
-            raise NotImplementedError("the ControlNet and UNet caches are not ported yet")
-        if tuple(float(c) for c in cfg_interval) != (0.0, 1.0):
-            raise NotImplementedError("cfg_interval is not ported yet")
+        conditioning scales on the host (``_step_scales``).
+
+        The serving knobs (opt-in approximations, as in the JAX package):
+        ``controlnet_cache_interval`` k > 1 runs the ControlNets every k-th
+        step and reuses their residuals in between; ``unet_cache_interval``
+        k > 1 runs the UNet's deep levels every k-th step and
+        ``shallow_forward`` in between; ``controlnet_cache_steps`` /
+        ``unet_cache_steps`` name the refresh steps instead (0 among them,
+        each exclusive with its interval); ``cfg_interval`` (start, end)
+        applies CFG only on the steps i with i/N >= start and (i+1)/N <= end
+        and runs the others at B rows on the conditional context (an empty
+        window, canonically (0, 0), turns CFG off). 1, None and (0, 1) are
+        the exact program."""
+        cfg_on, cn_sched, deep_sched = self._schedules(
+            num_inference_steps, controlnet_cache_interval, unet_cache_interval, cfg_interval,
+            controlnet_cache_steps, unet_cache_steps)
         dev = self.device
         prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
         negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
@@ -243,7 +360,70 @@ class EdgeStylePipeline:
             raise ValueError(f"guidance_scale must be a scalar or (B,), got {g.shape} "
                              f"for B={prompt_ids.shape[0]}")
         return self._generate(params, prompt_ids, negative_prompt_ids, cond_images, generator,
-                              num_inference_steps, g, scales, latents, guess_mode)
+                              num_inference_steps, g, scales, latents, guess_mode,
+                              cfg_on=cfg_on, cn_sched=cn_sched, deep_sched=deep_sched)
+
+    @staticmethod
+    def _schedules(num_steps: int, controlnet_cache_interval, unet_cache_interval,
+                   cfg_interval, controlnet_cache_steps, unet_cache_steps):
+        """The knobs, checked as the JAX pipeline checks them (the same
+        ValueErrors), -> (cfg_on, cn_sched, deep_sched) host schedules; each
+        is None where the knob is at its exact value."""
+        for name, val in (("controlnet_cache_interval", controlnet_cache_interval),
+                          ("unet_cache_interval", unet_cache_interval)):
+            if not isinstance(val, int) or val < 1:
+                raise ValueError(f"{name} must be an int >= 1, got {val!r}")
+
+        def norm_steps(name, steps, interval):
+            if steps is None:
+                return None
+            if interval != 1:
+                raise ValueError(f"{name} and its interval knob are mutually exclusive "
+                                 f"(got explicit steps with interval={interval})")
+            try:
+                steps = tuple(sorted({int(s) for s in steps}))
+            except (TypeError, ValueError):
+                raise ValueError(f"{name} must be an iterable of ints, got {steps!r}")
+            if not steps or steps[0] != 0:
+                raise ValueError(f"{name} must include step 0 (the cache seed is only "
+                                 f"valid once refreshed), got {steps!r}")
+            if steps[-1] >= num_steps:
+                raise ValueError(f"{name} entries must be < num_inference_steps="
+                                 f"{num_steps}, got {steps!r}")
+            return steps
+
+        def refresh_mask(interval, steps):
+            if steps is None:
+                if interval <= 1:
+                    return None
+                steps = range(0, num_steps, interval)
+            mask = np.zeros((num_steps,), bool)
+            mask[list(steps)] = True
+            return None if mask.all() else mask
+
+        cn_steps = norm_steps("controlnet_cache_steps", controlnet_cache_steps,
+                              controlnet_cache_interval)
+        deep_steps = norm_steps("unet_cache_steps", unet_cache_steps, unet_cache_interval)
+        try:
+            start, end = float(cfg_interval[0]), float(cfg_interval[1])
+        except (TypeError, ValueError, IndexError):
+            raise ValueError(f"cfg_interval must be a (start, end) pair of fractions, "
+                             f"got {cfg_interval!r}")
+        if not 0.0 <= start <= end <= 1.0:
+            raise ValueError(f"cfg_interval needs 0 <= start <= end <= 1, got {(start, end)}")
+        si = np.arange(num_steps, dtype=np.float32)
+        active = ~((si / num_steps < start) | ((si + 1) / num_steps > end))
+        cfg_on = None if active.all() else ("off" if not active.any() else active)
+        return (cfg_on, refresh_mask(controlnet_cache_interval, cn_steps),
+                refresh_mask(unet_cache_interval, deep_steps))
+
+    def generate_dp(self, *args, **kwargs):
+        raise NotImplementedError(f"generate_dp (several cards) is not ported yet "
+                                  f"({ROADMAP_ITEM_12})")
+
+    def generate_tp(self, *args, **kwargs):
+        raise NotImplementedError(f"generate_tp (several cards) is not ported yet "
+                                  f"({ROADMAP_ITEM_12})")
 
     def _step_scales(self, num_steps: int, conditioning_scale, start, end) -> np.ndarray:
         """(num_steps, num_branches) host float32: the reference's keep mask

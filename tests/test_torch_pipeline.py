@@ -125,13 +125,19 @@ def test_pipeline_init_and_generate_on_cpu():
 
 
 def test_pipeline_rejects_unported_knobs():
+    """int8 and the multi-card generators are not ported (they name their
+    ROADMAP item); the cache and cfg_interval knobs are, and raise the JAX
+    pipeline's ValueErrors on bad values before reading any input."""
     pipe = EdgeStylePipeline(TINY_PIPE, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], controlnet_cache_interval=2)
-    with pytest.raises(NotImplementedError):
-        pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], cfg_interval=(0.0, 0.4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="controlnet_cache_interval"):
+        pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], controlnet_cache_interval=0)
+    with pytest.raises(ValueError, match="cfg_interval"):
+        pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], cfg_interval=(0.4, 0.0))
+    with pytest.raises(NotImplementedError, match="item 12"):
         EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int8")
+    for name in ("generate_dp", "generate_tp"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            getattr(pipe, name)(None, {}, None, None, [])
 
 
 # ------------------------------------------------------------ package rules
@@ -148,7 +154,9 @@ def test_port_imports_nothing_of_jax():
             if _FORBIDDEN.search(line)]
     assert not hits, hits
     code = ("import sys, edgestyle_tpu_torch.pipelines.tryon, edgestyle_tpu_torch.kernels, "
-            "edgestyle_tpu_torch.apps.tryon; "
+            "edgestyle_tpu_torch.apps.tryon, edgestyle_tpu_torch.ops.tome, "
+            "edgestyle_tpu_torch.schedulers.dpmsolver, edgestyle_tpu_torch.schedulers.lcm, "
+            "edgestyle_tpu_torch.training.distill; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'edgestyle_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

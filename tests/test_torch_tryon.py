@@ -161,17 +161,24 @@ REQUIRED = ["--subject", "s.png", "--clothes1", "a.png", "--clothes2", "b.png", 
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mode", "turbo"], "item 12"), (["--controlnet_cache_interval", "2"], "item 12"),
-    (["--unet_cache_interval", "3"], "item 12"), (["--controlnet_cache_steps", "0", "4"], "item 12"),
-    (["--unet_cache_steps", "0", "2"], "item 12"), (["--cfg_interval", "0", "0.5"], "item 12"),
-    (["--tome", "0.5"], "item 12"), (["--int8_scales", "s.json"], "item 12"),
-    (["--scheduler", "dpm++"], "item 12"), (["--scheduler", "lcm"], "item 12"),
-    (["--lcm_lora", "a.safetensors"], "item 14"), (["--clip_model", "clip"], "item 14"),
+    (["--int8_scales", "s.json"], "item 12"), (["--clip_model", "clip"], "item 14"),
     (["--exported_dir", "art"], "item 15"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tryon.main(REQUIRED + flags, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mode", "turbo"], ["--controlnet_cache_interval", "2"], ["--unet_cache_interval", "3"],
+    ["--controlnet_cache_steps", "0", "4"], ["--unet_cache_steps", "0", "2"],
+    ["--cfg_interval", "0", "0.5"], ["--tome", "0.5"], ["--scheduler", "dpm++"],
+    ["--scheduler", "lcm"], ["--lcm_lora", "a.safetensors"],
+])
+def test_serving_flags_are_ported(flags):
+    """The serving knobs, their presets, both samplers and the LCM-LoRA
+    flag ask for nothing unported."""
+    tryon.refuse_unported(tryon.parse_args(REQUIRED + flags))
 
 
 @pytest.mark.parametrize("flags", [
