@@ -90,7 +90,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
      image, the generation's launches) and ``apps/train.py::main`` from the
      same directories (one step at micro-batch 1: a finite loss, a step's
      launches, its two exports of the trained set read back bitwise); a
-     ``{"pretrained": ...}`` line holds its numbers.
+     ``{"pretrained": ...}`` line holds its numbers;
+  9. mined_tryon (``mined_tryon_phase``): a seeded full-width CLIPModel file
+     (the CLIP-L text tower and ViT-L/14 with their projections, fp32,
+     427,616,513 parameters) and the byte tokenizer's files;
+     ``apps/tryon.py::main`` with ``--random_init --tokenizer_dir
+     --clip_model`` on three 512 px photos: the printed prompt is
+     "edgestyle, " and two colours and two garments of the banks, the
+     image finite in [0, 1], the generation's launches; the miner's ms per
+     image at B=1 (median of 10) and its vision forward's share; the card's
+     image embedding against the same tower on the CPU (fp32, TF32 off) and
+     each bank's top-2 logit margin: the CPU must mine the same prompt
+     unless every margin is within the error; a ``{"mined_tryon": ...}``
+     line;
+  10. data_training (``data_training_phase``): a seeded dataset of 2
+     subjects x 3 frames x the six artifact folders (512 px JPEGs, 12
+     triples); the loader's host seconds per batch at 0 and 2 workers;
+     ``apps/train.py::main`` on it (micro-batch 2, 512 px, 3 steps, 2
+     workers and prefetch, every ``--proportion_*`` at 0.2, validation every
+     2 steps where tensorboardX is installed) with the training phase's
+     checks, its launches against 3 steps' and the app's validation's
+     prediction, its steady s/step beside the synthetic loader's; a
+     ``{"data_training": ...}`` line;
+  11. validation (``validation_phase``): ``log_validation`` on that run's
+     trained state and first micro-batch at 512 px, b = 2, the four default
+     guidance scales, 8 steps: a finite [0, 1] grid of (7 x 512, 2 x 512, 3),
+     the launches against 176 flash and 880 GN statistics / conv per scale,
+     each scale's seconds; a ``{"validation": ...}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -1498,9 +1524,9 @@ def train_out_dir() -> str:
 def training_phase(dev):
     """The trainer's entry point at full width for TRAIN_STEPS steps, with
     the launch counts and the peak memory read around it alone. Returns
-    (launches, (pipe, frozen, tcfg, initial state)): the initial state is
-    rebuilt afterwards from the same seed by the same ``build`` that
-    ``main`` calls, to show what moved."""
+    (launches, (pipe, frozen, tcfg, initial state), steady seconds per
+    step): the initial state is rebuilt afterwards from the same seed by the
+    same ``build`` that ``main`` calls, to show what moved."""
     import shutil
 
     from edgestyle_tpu_torch import kernels
@@ -1573,7 +1599,7 @@ def training_phase(dev):
     if per_step != TRAIN_LAUNCHES_PER_STEP:
         fail("the training step's kernel launches differ from the counts the code predicts")
     del res, back, frozen, final
-    return launches, (pipe, frozen0, tcfg, state0)
+    return launches, (pipe, frozen0, tcfg, state0), steady
 
 
 def fp32_training_phase(dev) -> None:
@@ -2037,6 +2063,402 @@ def pretrained_phase(dev, card: str):
     return tryon_launches, train_launches
 
 
+# ------------------------------------------- CLIP, dataset and validation
+# Parameters of the full-width dual-tower CLIPModel (openai/
+# clip-vit-large-patch14: the text tower and ViT-L/14 with their projections
+# and logit_scale), HF's own count.
+CLIP_MODEL_PARAMS = 427_616_513
+MINER_TIMED = 10
+
+
+def clip_vision_manifest(layers=24, width=1024, mlp=4096, patch=14, image=224, projection=768):
+    """Key -> shape of HF's CLIPVisionModelWithProjection (ViT-L/14 by
+    default) in a CLIPModel file (``vision_model.*``, ``visual_projection``),
+    from HF's key grammar, with the I64 position_ids buffer."""
+    n = (image // patch) ** 2 + 1
+    e = "vision_model.embeddings"
+    m = {f"{e}.class_embedding": (width,), f"{e}.patch_embedding.weight": (width, 3, patch, patch),
+         f"{e}.position_embedding.weight": (n, width), f"{e}.position_ids": (1, n),
+         "visual_projection.weight": (projection, width)}
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        m[f"vision_model.{ln}.weight"], m[f"vision_model.{ln}.bias"] = (width,), (width,)
+    for i in range(layers):
+        p = f"vision_model.encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            m[f"{p}.self_attn.{proj}.weight"], m[f"{p}.self_attn.{proj}.bias"] = \
+                (width, width), (width,)
+        for ln in ("layer_norm1", "layer_norm2"):
+            m[f"{p}.{ln}.weight"], m[f"{p}.{ln}.bias"] = (width,), (width,)
+        m[f"{p}.mlp.fc1.weight"], m[f"{p}.mlp.fc1.bias"] = (mlp, width), (mlp,)
+        m[f"{p}.mlp.fc2.weight"], m[f"{p}.mlp.fc2.bias"] = (width, mlp), (width,)
+    return m
+
+
+def clip_model_manifest(text=None, vision=None, projection=768):
+    """Key -> shape of HF's dual-tower CLIPModel (openai's layout; the
+    towers of clip-vit-large-patch14 unless ``text`` / ``vision`` give other
+    sizes, as :func:`clip_text_manifest` and :func:`clip_vision_manifest`
+    take them), with ``logit_scale``."""
+    text = dict(text or {})
+    return {**clip_text_manifest(**text), **clip_vision_manifest(**(vision or {}),
+                                                                   projection=projection),
+            "text_projection.weight": (projection, text.get("width", 768)), "logit_scale": ()}
+
+
+def _captured(fn):
+    """fn()'s result and its standard output, which is also printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def _logit_margin(logits) -> float:
+    """The smaller of the gaps that decide a top-2 (first to second, second
+    to third) of each row, in logit units."""
+    top = torch.sort(logits, dim=-1, descending=True).values[:, :3]
+    return float(torch.minimum(top[:, 0] - top[:, 1], top[:, 1] - top[:, 2]).min())
+
+
+def mined_tryon_phase(dev, card: str):
+    """The try-on CLI with prompt mining at full width: a seeded ViT-L/14
+    CLIPModel file and the byte tokenizer's files, ``apps/tryon.py::main``
+    with ``--random_init --tokenizer_dir --clip_model`` on three photos, the
+    mined prompt's form, the miner's time per image and its vision forward's
+    share, and the card's image embedding against the CPU's. Returns the
+    kernels' launches of the CLI run."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import tryon
+    from edgestyle_tpu_torch.core.pretrained import load_clip_model_params
+    from edgestyle_tpu_torch.core.safetensors import save_file
+    from edgestyle_tpu_torch.data.prompts import (
+        CLOTHING_ITEMS,
+        COLORS,
+        TRIGGER_WORD,
+        build_prompt_miner,
+        top2,
+    )
+    from edgestyle_tpu_torch.data.tokenizer import make_byte_tokenizer
+    from edgestyle_tpu_torch.models.clip_vision import CLIPVisionModelWithProjection
+
+    rec = {"card": card}
+    manifest = clip_model_manifest()
+    rec["params"] = sum(math.prod(s) for k, s in manifest.items()
+                        if not k.endswith("position_ids"))
+    if rec["params"] != CLIP_MODEL_PARAMS:
+        fail(f"mined_tryon: the CLIPModel manifest has {rec['params']:,} parameters, not "
+             f"{CLIP_MODEL_PARAMS:,}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as root:
+        clip_dir, tok_dir = os.path.join(root, "clip"), os.path.join(root, "tokenizer")
+        os.makedirs(clip_dir)
+        sd = synth_on_card(manifest, gen, torch.float32)
+        t0 = time.perf_counter()
+        rec["file_bytes"] = save_file(sd, os.path.join(clip_dir, "model.safetensors"))
+        rec["write_s"] = time.perf_counter() - t0
+        del sd
+        make_byte_tokenizer().save_pretrained(tok_dir)
+        photos = []
+        for i, ph in enumerate(make_photos(3, 3, 512)):
+            photos.append(os.path.join(root, f"photo{i}.png"))
+            Image.fromarray((ph * 255).astype(np.uint8)).save(photos[-1])
+        argv = ["--subject", photos[0], "--clothes1", photos[1], "--clothes2", photos[2],
+                "--random_init", "--tokenizer_dir", tok_dir, "--clip_model", clip_dir,
+                "--out", os.path.join(root, "result.png")]
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image, out = _captured(lambda: tryon.main(argv, device=dev))
+        torch.cuda.synchronize()
+        rec["cli_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        rec["launches"] = launches
+        mined = [ln[len("mined prompt: "):] for ln in out.splitlines()
+                 if ln.startswith("mined prompt: ")]
+        if len(mined) != 1:
+            fail(f"mined_tryon: the CLI printed {len(mined)} mined prompts")
+        prompt = rec["prompt"] = mined[0]
+        terms = prompt[len(TRIGGER_WORD) + 2:].split(", ")
+        if not (prompt.startswith(f"{TRIGGER_WORD}, ") and len(terms) == 4
+                and terms[0] in COLORS and terms[1] in COLORS
+                and terms[2] in CLOTHING_ITEMS and terms[3] in CLOTHING_ITEMS):
+            fail(f"mined_tryon: the mined prompt {prompt!r} is not 'edgestyle, ' and two "
+                 f"colours and two garments")
+        check_images(torch.from_numpy(image).permute(2, 0, 1)[None], 1, "mined_tryon")
+        if launches != GEN_LAUNCHES_PER_REQUEST:
+            fail(f"mined_tryon: the CLI's launches {launches} differ from the generation's "
+                 f"{GEN_LAUNCHES_PER_REQUEST}")
+        torch.cuda.empty_cache()
+
+        # the miner alone, B=1, on the first garment photo as main gives it
+        t0 = time.perf_counter()
+        miner = build_prompt_miner(tok_dir, clip_dir, device=dev)
+        torch.cuda.synchronize()
+        rec["miner_build_s"] = time.perf_counter() - t0
+        c1 = tryon.load_image_512(photos[1]).astype(np.float32)[None] / 255.0
+        miner(c1)
+        rec["miner_ms"] = 1e3 * _wall(lambda: miner(c1), MINER_TIMED)[0]
+        px = miner.pixel_values(c1)
+        with torch.no_grad():
+            rec["vision_ms"] = 1e3 * _wall(lambda: miner.best.encode_image(px), MINER_TIMED)[0]
+        rec["vision_share"] = rec["vision_ms"] / rec["miner_ms"]
+        if miner(c1) != [prompt]:
+            fail("mined_tryon: the miner alone mines another prompt than the CLI's")
+
+        # the same vision tower on the CPU, fp32, TF32 off, same pixels
+        vision_cpu = load_clip_model_params(clip_dir, device="cpu")["vision"]
+        tower = CLIPVisionModelWithProjection()
+        with torch.no_grad():
+            emb_card = miner.best.encode_image(px).float()
+            emb_cpu = tower(vision_cpu, px.cpu())["image_embeds"].float()
+        rec["image_embeds_max_abs_err"] = float((emb_card.cpu() - emb_cpu).abs().max())
+        banks = {"colors": miner.best.color_bank.float(), "items": miner.best.item_bank.float()}
+        logit = lambda e, bank: 100.0 * (e / e.norm(dim=-1, keepdim=True)) @ bank.T  # noqa: E731
+        rec["banks"], cpu_terms = {}, []
+        for j, (name, bank) in enumerate(banks.items()):
+            lc, lh = logit(emb_card, bank).cpu(), logit(emb_cpu, bank.cpu())
+            words = COLORS if name == "colors" else CLOTHING_ITEMS
+            cpu_terms += [words[i] for i in top2(torch.softmax(lh, dim=-1))[0].tolist()]
+            rec["banks"][name] = {"top2_margin": _logit_margin(lc),
+                                  "logit_max_abs_err": float((lc - lh).abs().max()),
+                                  "same_terms": cpu_terms[2 * j:] == terms[2 * j:2 * j + 2]}
+        rec["cpu_prompt"] = f"{TRIGGER_WORD}, " + ", ".join(cpu_terms)
+        del miner, vision_cpu
+    torch.cuda.empty_cache()
+
+    b = rec["banks"]
+    print(f"mined_tryon ({card}): CLIPModel file {rec['file_bytes'] / 1e9:.3f} GB "
+          f"({rec['params']:,} parameters, fp32) written in {rec['write_s']:.2f} s; try-on CLI "
+          f"with mining {rec['cli_s']:.2f} s, mined prompt {prompt!r}, launches {launches}; "
+          f"miner build {rec['miner_build_s']:.2f} s; miner {rec['miner_ms']:.2f} ms per image "
+          f"(B=1, median of {MINER_TIMED}), vision forward {rec['vision_ms']:.2f} ms "
+          f"({100 * rec['vision_share']:.1f}%); image_embeds card vs CPU max |diff| "
+          f"{rec['image_embeds_max_abs_err']:.3e}; top-2 logit margins colours "
+          f"{b['colors']['top2_margin']:.4f} / items {b['items']['top2_margin']:.4f} against "
+          f"logit errors {b['colors']['logit_max_abs_err']:.3e} / "
+          f"{b['items']['logit_max_abs_err']:.3e}; CPU prompt {rec['cpu_prompt']!r}", flush=True)
+    print(json.dumps({"mined_tryon": rec}), flush=True)
+    if any(not v["same_terms"] and v["top2_margin"] > v["logit_max_abs_err"]
+           for v in b.values()):
+        fail("mined_tryon: the CPU's tower picks other terms from a bank whose top-2 margin "
+             "exceeds the card's error")
+    return launches
+
+
+DATA_SUBJECTS, DATA_FRAMES = ("s0", "s1"), ("f0", "f1", "f2")
+DATA_TRAIN_STEPS = 3
+DATA_VALIDATION_STEPS = 2
+DATA_VALIDATION_IMAGES = 2
+VALIDATION_STEPS = 8  # the trainer's validation runs 8 denoise steps
+# Launches per guidance scale of a validation, from the code: 8 denoise
+# steps of the generation's 22 flash and 104 GN statistics / conv launches,
+# plus the VAE's 48 (the three VAE conds encoded, the images decoded).
+VALIDATION_LAUNCHES_PER_SCALE = {"flash_fwd": 22 * VALIDATION_STEPS,
+                                 "gn_scale_shift": 104 * VALIDATION_STEPS + 2 * (10 + 14),
+                                 "fused_gn_silu_conv3x3": 104 * VALIDATION_STEPS + 2 * (10 + 14),
+                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def write_dataset(root: str) -> None:
+    """The extracted dataset's layout: DATA_SUBJECTS x DATA_FRAMES x the six
+    artifact folders, seeded 512 px JPEGs (12 index triples)."""
+    import numpy as np
+    from PIL import Image
+
+    from edgestyle_tpu_torch.data.dataset import ARTIFACTS
+
+    photos = iter(make_photos(11, len(DATA_SUBJECTS) * len(DATA_FRAMES) * len(ARTIFACTS), 512))
+    for s in DATA_SUBJECTS:
+        for a in ARTIFACTS:
+            os.makedirs(os.path.join(root, s, a))
+            for f in DATA_FRAMES:
+                Image.fromarray((next(photos) * 255).astype(np.uint8)).save(
+                    os.path.join(root, s, a, f + ".jpg"))
+
+
+def data_training_phase(dev, card: str, synthetic_step_s: float):
+    """The trainer's entry point on a dataset at full width (module
+    docstring, phase 9): the loader's host time, 3 steps with 2 workers and
+    prefetch, validation in the app where tensorboardX is installed, the
+    training phase's checks and launch counts. Returns (launches, (pipe,
+    frozen, trainable, first micro-batch)) for the validation phase."""
+    import shutil
+    import tempfile
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import train
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.data.dataset import EdgeStyleLocalDataset, data_loader
+    from edgestyle_tpu_torch.training.train_step import TRAINABLE_GROUPS
+
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
+        data_dir = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        write_dataset(data_dir)
+        rec["write_s"] = time.perf_counter() - t0
+        ds = EdgeStyleLocalDataset(data_dir)
+        rec["index"] = len(ds)
+        if len(ds) != 12:
+            fail(f"data_training: the dataset indexes {len(ds)} triples, not 12")
+        rec["loader_s_per_batch"] = {}
+        for workers in (0, 2):
+            it = data_loader(ds, 2, 1, seed=0, num_workers=workers)
+            next(it)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                next(it)
+                times.append(time.perf_counter() - t0)
+            rec["loader_s_per_batch"][workers] = statistics.median(times)
+
+        out_dir = os.path.join(root, "out")
+        argv = ["--random_init", "--dataset_dir", data_dir, "--resolution", "512",
+                "--train_batch_size", "2", "--gradient_accumulation_steps", "1",
+                "--max_train_steps", str(DATA_TRAIN_STEPS), "--dataloader_num_workers", "2",
+                "--validation_steps", str(DATA_VALIDATION_STEPS),
+                "--num_validation_images", str(DATA_VALIDATION_IMAGES),
+                "--mixed_precision", "bf16", "--logging_steps", "1", "--seed", "0",
+                "--output_dir", out_dir]
+        for k in train.PROPORTIONS:
+            argv += [f"--{k}", "0.2"]
+        args = train.parse_args(argv)
+        writer = train.summary_writer(args)
+        rec["tensorboardX"] = writer is not None
+        if writer is not None:
+            writer.close()
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train.main(argv, device=dev)
+        torch.cuda.synchronize()
+        rec["main_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        rec["launches"] = launches
+
+        log = res["log"]
+        if [r["step"] for r in log] != list(range(1, DATA_TRAIN_STEPS + 1)):
+            fail(f"data_training: logged steps {[r['step'] for r in log]}")
+        losses, ds_ = [r["loss"] for r in log], [r["d"] for r in log]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"data_training: non-finite loss {losses}")
+        if not all(b >= a for a, b in zip(ds_, ds_[1:])):
+            fail(f"data_training: Prodigy's d fell: {ds_}")
+        ends = [0.0] + [r["elapsed_s"] for r in log]
+        step_s = [b - a for a, b in zip(ends, ends[1:])]
+        # the app validates after logging step 2, inside step 3's interval
+        steady = step_s[1] if rec["tensorboardX"] else sum(step_s[1:]) / len(step_s[1:])
+        rec.update(losses=losses, d=ds_, step_s=step_s, steady_s_per_step=steady,
+                   synthetic_steady_s_per_step=synthetic_step_s)
+
+        built = train.build(args, dev)
+        pipe, frozen0, _, state0, _ = built
+        init, final = flatten(state0["trainable"]), flatten(res["state"]["trainable"])
+        for group in TRAINABLE_GROUPS:
+            if not any(not torch.equal(final[k], v) for k, v in init.items() if k[0] == group):
+                fail(f"data_training: trainable group {group} did not move")
+        frozen = flatten(res["frozen"])
+        if frozen.keys() != flatten(frozen0).keys() or not all(
+                torch.equal(frozen[k], v) for k, v in flatten(frozen0).items()):
+            fail("data_training: a frozen weight changed in training")
+        del built, state0, frozen0, init, final, frozen
+
+        n_val = DATA_TRAIN_STEPS // DATA_VALIDATION_STEPS if rec["tensorboardX"] else 0
+        want = {k: v * DATA_TRAIN_STEPS + n_val * DATA_VALIDATION_IMAGES
+                * VALIDATION_LAUNCHES_PER_SCALE[k] for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+        rec["predicted_launches"] = want
+        first = next(train.dataset_loader(args))
+        batch = {k: torch.from_numpy(v[0]).to(dev) for k, v in first.items()}
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    lp = rec["loader_s_per_batch"]
+    print(f"data_training ({card}): dataset of {rec['index']} triples written in "
+          f"{rec['write_s']:.2f} s; loader host s/batch (micro-batch 2, 512 px) {lp[0]:.4f} at "
+          f"0 workers, {lp[2]:.4f} at 2; train.main on the dataset ({DATA_TRAIN_STEPS} steps, "
+          f"2 workers + prefetch, validation every {DATA_VALIDATION_STEPS} steps) "
+          f"{rec['main_s']:.2f} s, losses {losses}, d {ds_}, seconds per step "
+          f"{[round(x, 4) for x in step_s]}, steady {steady:.4f} s/step against the synthetic "
+          f"loader's {synthetic_step_s:.4f}; tensorboardX found: {rec['tensorboardX']} (the "
+          f"app's validation {'ran' if rec['tensorboardX'] else 'skipped'}); launches "
+          f"{launches}, predicted {want}", flush=True)
+    print(json.dumps({"data_training": rec}), flush=True)
+    if launches != want:
+        fail("data_training: the kernel launches differ from the counts the code predicts")
+    return launches, (pipe, res["frozen"], res["state"]["trainable"], batch)
+
+
+class _TimedPipe:
+    """A pipeline whose calls are timed on the host, each ending in a
+    synchronize (``log_validation`` reads ``device`` and calls it)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.device, self.seconds = pipe, pipe.device, []
+
+    def __call__(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.pipe(*a, **kw)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def validation_phase(dev, card: str, trained):
+    """``training/validation.py::log_validation`` on the card at 512 px on
+    the data_training run's trained state and first micro-batch (b = 2),
+    the four default guidance scales, 8 steps: the grid's shape and range,
+    the launches against the prediction, each scale's seconds."""
+    import numpy as np
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.training.validation import (
+        VALIDATION_GUIDANCE_SCALES,
+        log_validation,
+    )
+
+    pipe, frozen, trainable, batch = trained
+    b = DATA_VALIDATION_IMAGES
+    micro = {k: v[:b] for k, v in batch.items()}
+    timed = _TimedPipe(pipe)
+    n = len(VALIDATION_GUIDANCE_SCALES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    grid = log_validation(timed, frozen, trainable, micro, DATA_TRAIN_STEPS,
+                          num_inference_steps=VALIDATION_STEPS)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {k: v * n for k, v in VALIDATION_LAUNCHES_PER_SCALE.items()}
+    rec = {"card": card, "grid_shape": list(grid.shape), "wall_s": wall,
+           "s_per_guidance_scale": dict(zip(map(str, VALIDATION_GUIDANCE_SCALES), timed.seconds)),
+           "launches": launches, "predicted_launches": want,
+           "grid_min": float(grid.min()), "grid_max": float(grid.max())}
+    print(f"validation ({card}): log_validation at 512 px, b = {b}, guidance "
+          f"{VALIDATION_GUIDANCE_SCALES}, {VALIDATION_STEPS} steps: {wall:.2f} s, seconds per "
+          f"scale {[round(s, 3) for s in timed.seconds]}; grid {grid.shape} in "
+          f"[{rec['grid_min']:.4f}, {rec['grid_max']:.4f}]; launches {launches}, predicted "
+          f"{want}", flush=True)
+    print(json.dumps({"validation": rec}), flush=True)
+    if grid.shape != ((3 + n) * 512, b * 512, 3) or not np.isfinite(grid).all() or (
+            grid.min() < 0 or grid.max() > 1):
+        fail(f"validation: the grid {grid.shape} is not finite in [0, 1] of shape "
+             f"({(3 + n) * 512}, {b * 512}, 3)")
+    if launches != want:
+        fail("validation: the kernel launches differ from the counts the code predicts")
+    return launches
+
+
 def _live_trainables(state, gen):
     """A copy of the trainables with the zero-init ControlNet heads and LoRA
     ups given small random values, so that every trunk gradient is live."""
@@ -2292,7 +2714,7 @@ def main() -> int:
     del pipe, params
     torch.cuda.empty_cache()
 
-    train_launches, built = training_phase(dev)
+    train_launches, built, synthetic_step_s = training_phase(dev)
     grad_check_phase(dev, built)
     if args.profile:
         profile_train_step(dev, built, args.profile)
@@ -2300,6 +2722,18 @@ def main() -> int:
     fp32_training_phase(dev)
     torch.cuda.empty_cache()
     pretrained_tryon_launches, pretrained_train_launches = pretrained_phase(dev, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mined_launches = mined_tryon_phase(dev, card)
+    print(f"phase mined_tryon: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data_launches, trained = data_training_phase(dev, card, synthetic_step_s)
+    print(f"phase data_training: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    validation_launches = validation_phase(dev, card, trained)
+    print(f"phase validation: {time.perf_counter() - t0:.2f} s", flush=True)
+    del trained
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
@@ -2309,7 +2743,8 @@ def main() -> int:
     by_path = {"generation": launches, "tryon_system": tryon_launches,
                "serving": serving_launches_total, "training": train_launches,
                "pretrained_tryon": pretrained_tryon_launches,
-               "pretrained_training": pretrained_train_launches}
+               "pretrained_training": pretrained_train_launches, "mined_tryon": mined_launches,
+               "data_training": data_launches, "validation": validation_launches}
     out = []
     for name, source, replaces, shapes in records:
         # the record's bound is the largest shape's; exponentials are

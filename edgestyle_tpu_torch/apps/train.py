@@ -4,16 +4,24 @@ Counterpart of edgestyle_tpu/apps/train.py, with its flag set and defaults
 (:func:`parse_args`). Ported: the frozen weights from diffusers/HF
 directories (``--pretrained_model`` with ``unet/`` and ``text_encoder/``,
 ``--vae``, ``--openpose_controlnet``; core/pretrained.py) or, with
-``--random_init``, from ``--seed``; the synthetic loader, the step loop
-with its JSON log lines, checkpointing with rotation and resume, the
-final checkpoint and the trained set's two exports
+``--random_init``, from ``--seed``; the extracted dataset
+(``--dataset_dir``, data/dataset.py's layout: ``<subject>/{processed,
+openpose, subject, agnostic, head, clothes}/<frame>.jpg``) with
+``--max_train_samples`` and the five ``--proportion_*`` augmentations, or
+without it the synthetic loader; the thread pool and background prefetch
+of ``--dataloader_num_workers``; the step loop with its JSON log lines;
+validation by generation every ``--validation_steps`` (logged to
+TensorBoard through ``tensorboardX`` where it is installed, skipped where
+it is not, as in the JAX trainer); checkpointing with rotation and resume,
+the final checkpoint and the trained set's two exports
 (``edgestyle_trainable.safetensors`` and the reference's ``controlnet/``
-layout). Not ported yet, and refused with ``NotImplementedError`` naming
-their ROADMAP item: a dataset (``--dataset_dir``), validation, background
-prefetch (``--dataloader_num_workers``) and more than one card.
+layout). More than one card is refused with ``NotImplementedError``
+naming its ROADMAP item.
 
     python -m edgestyle_tpu_torch.apps.train --random_init --resolution 512 \\
         --train_batch_size 2 --gradient_accumulation_steps 1 --max_train_steps 3
+    python -m edgestyle_tpu_torch.apps.train --random_init --dataset_dir extracted \\
+        --dataloader_num_workers 2 --validation_steps 100 --max_train_steps 1000
     python -m edgestyle_tpu_torch.apps.train --pretrained_model rv51 \\
         --vae sd-vae-ft-mse --openpose_controlnet openpose --max_train_steps 3
 """
@@ -28,8 +36,11 @@ import time
 import numpy as np
 import torch
 
-ROADMAP_TRAINING = "ROADMAP.md Queue 1 item 13"
+ROADMAP_CARDS = "ROADMAP.md Queue 1 item 16"
 WEIGHT_DIRS = ("pretrained_model", "vae", "openpose_controlnet")
+PROPORTIONS = ("proportion_empty_prompts", "proportion_empty_images",
+               "proportion_patchworked_images", "proportion_cutout_images",
+               "proportion_patchworks")
 
 
 def _ref_bool(v: str) -> bool:
@@ -123,22 +134,31 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Refuse what this slice does not port yet, and a run with no weights."""
-    if args.dataset_dir:
-        raise NotImplementedError(f"--dataset_dir: the dataset and loader are not ported "
-                                  f"yet ({ROADMAP_TRAINING})")
     missing = [f"--{n}" for n in WEIGHT_DIRS if not getattr(args, n)]
     if not args.random_init and missing:
         raise ValueError(f"without --random_init the weights come from --pretrained_model, "
                          f"--vae and --openpose_controlnet; missing {', '.join(missing)}")
-    if args.validation_steps:
-        raise NotImplementedError(f"--validation_steps: validation is not ported yet "
-                                  f"({ROADMAP_TRAINING})")
-    if args.dataloader_num_workers > 0:
-        raise NotImplementedError(f"--dataloader_num_workers: background prefetch is not "
-                                  f"ported yet ({ROADMAP_TRAINING})")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(f"more than one card: data-parallel training is not "
-                                  f"ported yet ({ROADMAP_TRAINING})")
+                                  f"ported yet ({ROADMAP_CARDS})")
+
+
+def train_steps(args) -> int:
+    """The loop's length: ``--max_train_steps``, else ``--num_train_epochs``
+    epochs of the dataset's first ``--max_train_samples`` examples at
+    ``--train_batch_size`` x ``--gradient_accumulation_steps`` a step (at
+    least one step; reference train...py:1034-1038); the synthetic loader
+    counts 1000 steps an epoch."""
+    steps_per_epoch = 1000
+    if args.dataset_dir:
+        from edgestyle_tpu_torch.data.dataset import EdgeStyleLocalDataset
+
+        n_samples = len(EdgeStyleLocalDataset(args.dataset_dir, resolution=args.resolution))
+        if args.max_train_samples:
+            n_samples = min(n_samples, args.max_train_samples)
+        steps_per_epoch = max(
+            n_samples // (args.train_batch_size * args.gradient_accumulation_steps), 1)
+    return args.max_train_steps or args.num_train_epochs * steps_per_epoch
 
 
 def build(args, device="cuda", base_cfg=None):
@@ -180,8 +200,7 @@ def build(args, device="cuda", base_cfg=None):
         # in the JAX trainer); the trainables stay fp32 master weights
         frozen = unflatten({k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
                             for k, v in flatten(frozen).items()})
-    steps_per_epoch = 1000  # the synthetic loader has no epochs
-    max_train_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
+    max_train_steps = train_steps(args)
     lr = args.learning_rate
     if args.scale_lr:
         lr *= args.gradient_accumulation_steps * args.train_batch_size  # one card
@@ -236,6 +255,39 @@ def synthetic_loader(args):
         }
 
 
+def dataset_loader(args):
+    """The extracted dataset's shuffled loader (data/dataset.py::data_loader,
+    the JAX trainer's batches bit for bit from ``--seed``), its images moved
+    to NCHW as the synthetic loader gives them (on the prefetch thread when
+    there is one) and its ids int64; the first ``--max_train_samples``
+    examples of the index only."""
+    from edgestyle_tpu_torch.data.dataset import EdgeStyleLocalDataset, data_loader
+    from edgestyle_tpu_torch.training.train_step import BATCH_KEYS
+
+    ds = EdgeStyleLocalDataset(args.dataset_dir, resolution=args.resolution)
+    if args.max_train_samples:
+        ds.index = ds.index[: args.max_train_samples]
+    loader = data_loader(
+        ds, args.train_batch_size * args.gradient_accumulation_steps,
+        args.gradient_accumulation_steps, seed=args.seed,
+        proportions={k: getattr(args, k) for k in PROPORTIONS},
+        num_workers=args.dataloader_num_workers)
+    for batch in loader:
+        yield {k: np.ascontiguousarray(v.transpose(0, 1, 4, 2, 3)) if v.ndim == 5
+               else v.astype(np.int64) for k, v in batch.items() if k in BATCH_KEYS}
+
+
+def summary_writer(args):
+    """A tensorboardX writer under ``--output_dir/--logging_dir``, or None
+    where tensorboardX is not installed (validation is then skipped, as in
+    the JAX trainer)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(os.path.join(args.output_dir, args.logging_dir))
+
+
 def main(argv=None, device="cuda", base_cfg=None):
     """Train; print one JSON line every ``--logging_steps`` and a final one.
     Returns {'state', 'frozen', 'log'}: the final train state, the frozen
@@ -259,21 +311,48 @@ def main(argv=None, device="cuda", base_cfg=None):
                                 else int(args.resume_from_checkpoint), pipe.device)
     step_fn = make_train_step(pipe, tcfg)
     draw_gen = make_generator(args.seed + 1, pipe.device)
+    loader = dataset_loader(args) if args.dataset_dir else synthetic_loader(args)
+    if args.dataloader_num_workers > 0:
+        # overlap the host's decode and collate with the card's steps
+        from edgestyle_tpu_torch.data.prefetch import prefetch
+
+        loader = prefetch(loader, depth=2)
+    writer = summary_writer(args)
     log = []
     t0 = time.time()
-    for batch in synthetic_loader(args):
-        if state["step"] >= max_train_steps:
-            break
-        batch = {k: torch.from_numpy(v).to(pipe.device) for k, v in batch.items()}
-        state, metrics = step_fn(state, frozen, batch, sample_draws(pipe, tcfg, batch, draw_gen))
-        gstep = state["step"]
-        if gstep % args.logging_steps == 0:
-            rec = {"step": gstep, "loss": float(metrics["loss"]), "d": float(metrics["d"]),
-                   "elapsed_s": round(time.time() - t0, 3)}
-            log.append(rec)
-            print(json.dumps(rec), flush=True)
-        if args.checkpointing_steps and gstep % args.checkpointing_steps == 0:
-            save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
+    try:
+        for batch in loader:
+            if state["step"] >= max_train_steps:
+                break
+            batch = {k: torch.from_numpy(v).to(pipe.device) for k, v in batch.items()}
+            state, metrics = step_fn(state, frozen, batch,
+                                     sample_draws(pipe, tcfg, batch, draw_gen))
+            gstep = state["step"]
+            if gstep % args.logging_steps == 0:
+                rec = {"step": gstep, "loss": float(metrics["loss"]), "d": float(metrics["d"]),
+                       "elapsed_s": round(time.time() - t0, 3)}
+                log.append(rec)
+                print(json.dumps(rec), flush=True)
+                if writer is not None:
+                    writer.add_scalar("train_loss", rec["loss"], gstep)
+                    writer.add_scalar("train_lr", rec["d"], gstep)
+            if args.checkpointing_steps and gstep % args.checkpointing_steps == 0:
+                save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
+            if args.validation_steps and gstep % args.validation_steps == 0 and writer:
+                from edgestyle_tpu_torch.training.validation import log_validation
+
+                # the first micro-batch, capped at --num_validation_images
+                n = args.num_validation_images
+                log_validation(pipe, frozen, state["trainable"],
+                               {k: v[0, :n] for k, v in batch.items()}, gstep, writer,
+                               num_inference_steps=8, use_agnostic=args.use_agnostic_images,
+                               # the reference's sweep (train...py:146)
+                               guidance_scales=tuple(np.linspace(3.0, 7.5, n)))
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()  # stops the prefetch thread (the source is infinite)
+        if writer is not None:
+            writer.close()
     save_checkpoint(args.output_dir, state, args.checkpoints_total_limit)
     # the deployable artifacts: the JAX package's flat file, and the
     # reference's layout (train...py:1373-1382), which the reference's torch

@@ -14,15 +14,20 @@ directories (``--pretrained_model`` with ``unet/`` and ``text_encoder/``,
 (``--edgestyle_checkpoint``: a reference-layout directory or an exported
 file; core/pretrained.py); the tokenizer, ``--fused``; the serving knobs
 (``--scheduler``, ``--tome``, ``--cfg_interval``, the cache flags) and
-their ``--mode`` presets (:func:`apply_serving_mode`), and ``--lcm_lora``
-adapters merged into the UNet. Every flag that asks for something not
-ported raises ``NotImplementedError`` naming its ROADMAP item
-(:func:`refuse_unported`); with ``--random_init`` the weight flags are
-ignored, as in the JAX app.
+their ``--mode`` presets (:func:`apply_serving_mode`), ``--lcm_lora``
+adapters merged into the UNet, and the prompt mined from the first garment
+photo by CLIP (``--clip_model``, a CLIPModel safetensors directory, with
+``--tokenizer_dir`` and no ``--prompt``; data/prompts.py). Every flag
+that asks for something not ported raises ``NotImplementedError`` naming
+its ROADMAP item (:func:`refuse_unported`); with ``--random_init`` the
+weight flags are ignored, as in the JAX app.
 
     python -m edgestyle_tpu_torch.apps.tryon --random_init \\
         --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
     python -m edgestyle_tpu_torch.apps.tryon --random_init --mode turbo \\
+        --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
+    python -m edgestyle_tpu_torch.apps.tryon --random_init --tokenizer_dir clip-tok \
+        --clip_model clip-vit-large-patch14 \
         --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
     python -m edgestyle_tpu_torch.apps.tryon --pretrained_model rv51 --vae sd-vae-ft-mse \\
         --openpose_controlnet openpose --edgestyle_checkpoint trained \\
@@ -61,7 +66,6 @@ from edgestyle_tpu_torch.training.checkpoint import import_safetensors
 from edgestyle_tpu_torch.training.distill import apply_lcm_lora
 
 ROADMAP_KNOBS = "ROADMAP.md Queue 1 item 12"
-ROADMAP_MODELS = "ROADMAP.md Queue 1 item 14"
 ROADMAP_APPS = "ROADMAP.md Queue 1 item 15"
 CANVAS = 512  # pose renders and SAM run at the 512 px working size
 
@@ -197,7 +201,6 @@ def refuse_unported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for the first flag
     that asks for something this port does not carry yet."""
     refused = [(flag, item) for flag, item in (("int8_scales", ROADMAP_KNOBS),
-                                               ("clip_model", ROADMAP_MODELS),
                                                ("exported_dir", ROADMAP_APPS))
                if getattr(args, flag, None)]
     if refused:
@@ -467,8 +470,16 @@ def main(argv=None, device: DeviceLike = "cuda") -> np.ndarray:
         from edgestyle_tpu_torch.data.tokenizer import CLIPTokenizer
 
         tok = CLIPTokenizer.from_pretrained_dir(args.tokenizer_dir)
+        prompt = args.prompt
+        if prompt is None and args.clip_model:
+            from edgestyle_tpu_torch.data.prompts import build_prompt_miner
+
+            miner = build_prompt_miner(args.tokenizer_dir, args.clip_model, device=system.device)
+            prompt = miner(c1[None])[0]
+            del miner
+            print(f"mined prompt: {prompt}")
         # the reference joins the prompt and its suffix with a space (:328)
-        ids = tok([" ".join(filter(None, [args.prompt or "", args.prompt_text_to_add]))])
+        ids = tok([" ".join(filter(None, [prompt or "", args.prompt_text_to_add]))])
         neg = tok([args.negative_prompt])
     else:
         from edgestyle_tpu_torch.data.tokenizer import empty_prompt_ids

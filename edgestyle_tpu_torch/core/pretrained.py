@@ -33,6 +33,7 @@ from edgestyle_tpu_torch.core.params import flatten
 from edgestyle_tpu_torch.core.porting import KeyMapper, tree_from_flat
 from edgestyle_tpu_torch.core.safetensors import load_file, save_file
 from edgestyle_tpu_torch.models.clip_text import port_clip_text_state_dict
+from edgestyle_tpu_torch.models.clip_vision import port_clip_vision_state_dict
 from edgestyle_tpu_torch.models.unet import (
     _unet_common_mapper,
     controllora_params,
@@ -68,6 +69,25 @@ def load_vae_params(path: str, device: DeviceLike = "cuda",
 def load_clip_text_params(path: str, num_layers: int = 12, device: DeviceLike = "cuda",
                           dtype: torch.dtype = torch.bfloat16) -> Dict:
     return _load(path, lambda sd: port_clip_text_state_dict(sd, num_layers), device, dtype)
+
+
+def load_clip_model_params(path: str, text_layers: int = 12, vision_layers: int = 24,
+                           device: DeviceLike = "cuda",
+                           dtype: torch.dtype = torch.float32) -> Dict:
+    """A dual-tower CLIPModel checkpoint (the openai/clip-vit-large-patch14
+    layout: the reference's prompt-mining model, inference.py:98-99) ->
+    {"text": ..., "vision": ...}, the trees of
+    ``CLIPTextModelWithProjection`` and ``CLIPVisionModelWithProjection``.
+    ``logit_scale`` and the ``position_ids`` buffers are dropped."""
+    dev = resolve_device(device)
+    sd = load_file(_find_weights(path), dev)
+    text = {f"text_model.{k}": v for k, v in port_clip_text_state_dict(
+        {k: v for k, v in sd.items() if k.startswith("text_model.")}, text_layers).items()}
+    text["text_projection.kernel"] = sd["text_projection.weight"]
+    vision = port_clip_vision_state_dict(
+        {k: v for k, v in sd.items() if k.startswith(("vision_model.", "visual_projection"))},
+        vision_layers)
+    return {"text": tree_from_flat(text, dev, dtype), "vision": tree_from_flat(vision, dev, dtype)}
 
 
 def load_unet_params(path: str, device: DeviceLike = "cuda",

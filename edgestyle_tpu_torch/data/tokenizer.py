@@ -121,6 +121,16 @@ class CLIPTokenizer:
             os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt"), max_length
         )
 
+    def save_pretrained(self, path: str) -> None:
+        """Write ``vocab.json`` and ``merges.txt`` under ``path``, the files
+        :meth:`from_pretrained_dir` reads."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "vocab.json"), "w") as f:
+            json.dump(self.encoder, f)
+        ranked = sorted(self.bpe_ranks, key=self.bpe_ranks.get)
+        with open(os.path.join(path, "merges.txt"), "w") as f:
+            f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in ranked))
+
     def _bpe(self, token: str) -> str:
         if token in self.cache:
             return self.cache[token]
@@ -194,3 +204,16 @@ def make_tiny_tokenizer() -> CLIPTokenizer:
     vocab["<|startoftext|>"] = len(vocab)
     vocab["<|endoftext|>"] = len(vocab)
     return CLIPTokenizer(vocab, [], max_length=16)
+
+
+def make_byte_tokenizer(max_length: int = 77) -> CLIPTokenizer:
+    """:func:`make_tiny_tokenizer`'s vocabulary (same ids) with the word-end
+    form of every other byte too, so that any text encodes (punctuation,
+    hyphens: the prompt miner's banks and its "edgestyle, ..." prompts); no
+    merges, the EOS still the largest id."""
+    vocab = {k: v for k, v in make_tiny_tokenizer().encoder.items() if not k.startswith("<|")}
+    for c in sorted(set(_bytes_to_unicode().values())):
+        vocab.setdefault(c + "</w>", len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    return CLIPTokenizer(vocab, [], max_length=max_length)

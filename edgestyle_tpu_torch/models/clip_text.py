@@ -50,6 +50,17 @@ def _attention(p, x, causal_mask, cfg: CLIPTextConfig, dtype):
     return dense(sub(p, "out_proj"), out, c, dtype)
 
 
+def clip_layer(lp, x, mask, cfg: CLIPTextConfig, dtype):
+    """One pre-LN encoder layer (quick-GELU MLP); ``mask`` is added to the
+    attention logits: the causal mask here, zeros in the vision tower."""
+    x = x + _attention(sub(lp, "self_attn"),
+                       layer_norm_block(sub(lp, "layer_norm1"), x, cfg.layer_norm_eps),
+                       mask, cfg, dtype)
+    hdn = layer_norm_block(sub(lp, "layer_norm2"), x, cfg.layer_norm_eps)
+    hdn = quick_gelu(dense(sub(lp, "fc1"), hdn, cfg.intermediate_size, dtype))
+    return x + dense(sub(lp, "fc2"), hdn, cfg.hidden_size, dtype)
+
+
 class CLIPTextEncoder:
     def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig(),
                  dtype: torch.dtype = torch.float32):
@@ -67,13 +78,7 @@ class CLIPTextEncoder:
         x = table.to(dt)[input_ids] + pos[None, :n].to(dt)
         mask = torch.triu(torch.full((n, n), float("-inf"), device=x.device), diagonal=1)
         for i in range(cfg.num_layers):
-            lp = sub(p, f"layers_{i}")
-            x = x + _attention(sub(lp, "self_attn"),
-                               layer_norm_block(sub(lp, "layer_norm1"), x, cfg.layer_norm_eps),
-                               mask[None, None], cfg, dt)
-            hdn = layer_norm_block(sub(lp, "layer_norm2"), x, cfg.layer_norm_eps)
-            hdn = quick_gelu(dense(sub(lp, "fc1"), hdn, cfg.intermediate_size, dt))
-            x = x + dense(sub(lp, "fc2"), hdn, cfg.hidden_size, dt)
+            x = clip_layer(sub(p, f"layers_{i}"), x, mask[None, None], cfg, dt)
         x = layer_norm_block(sub(p, "final_layer_norm"), x, cfg.layer_norm_eps)
         eos = input_ids.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eos]

@@ -114,3 +114,30 @@ def test_fusion_block_matches_golden(goldens, shapes):
     x = t(gm.fusion_inputs())  # (B, C*N, H, W)
     out = fusion_block(p, x.permute(0, 2, 3, 1), gm.FUSION["c"], gm.FUSION["n"], torch.float32)
     scaled_close(out.permute(0, 3, 1, 2), goldens["fusion.out"], 1e-5, "fusion")
+
+
+def test_prodigy_matches_golden_trajectory(goldens):
+    """The port's Prodigy (the trainer's settings: lr 1, weight decay 1e-4,
+    safeguard warmup and bias correction) on the ill-conditioned two-tensor
+    problem: the 10 parameter snapshots and the d trace of the committed
+    golden, at tests/test_goldens_committed.py's tolerances."""
+    from edgestyle_tpu_torch.training.optim import apply_updates
+    from edgestyle_tpu_torch.training.prodigy import Prodigy, get_d
+
+    params, targets, scales = gm.prodigy_problem()
+    opt = Prodigy(learning_rate=1.0, weight_decay=1e-4, safeguard_warmup=True,
+                  use_bias_correction=True)
+    ps = {f"p{j}": t(p) for j, p in enumerate(params)}
+    state = opt.init(ps)
+    d_got = []
+    for it in range(gm.PRODIGY_STEPS):
+        grads = {f"p{j}": s * (ps[f"p{j}"] - t(tg))
+                 for j, (tg, s) in enumerate(zip(targets, scales))}
+        updates, state = opt.update(grads, state, ps)
+        ps = apply_updates(ps, updates)
+        if it in gm.PRODIGY_CHECKPOINTS:
+            d_got.append(float(get_d(state)))
+            for j in range(len(params)):
+                np.testing.assert_allclose(ps[f"p{j}"].numpy(), goldens[f"prodigy.step{it}.p{j}"],
+                                           rtol=2e-4, atol=2e-5, err_msg=f"step {it} p{j}")
+    np.testing.assert_allclose(d_got, goldens["prodigy.d_trace"], rtol=1e-3)

@@ -398,8 +398,11 @@ def test_train_build_keeps_frozen_bf16_and_trainables_fp32():
 @pytest.mark.parametrize("flags", [["--dataset_dir", "d", "--random_init"],
                                    ["--random_init", "--validation_steps", "5"],
                                    ["--random_init", "--dataloader_num_workers", "2"]])
-def test_train_main_refuses_unported_flags(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_train_main_refuses_unported_flags(flags, monkeypatch):
+    """The dataset, validation and prefetch are ported (tests/test_torch_data.py);
+    with them, more than one card is still refused."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
         train_app.main(flags, device="cpu", base_cfg=TRAIN_CFG)
 
 

@@ -161,7 +161,10 @@ REQUIRED = ["--subject", "s.png", "--clothes1", "a.png", "--clothes2", "b.png", 
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--int8_scales", "s.json"], "item 12"), (["--clip_model", "clip"], "item 14"),
+    # --clip_model is ported (prompt mining): beside it, --exported_dir is
+    # the flag refused
+    (["--int8_scales", "s.json"], "item 12"), (["--clip_model", "clip", "--exported_dir", "art"],
+                                               "item 15"),
     (["--exported_dir", "art"], "item 15"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
