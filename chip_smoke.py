@@ -116,7 +116,37 @@ Phases, each of which ends the run with a non-zero exit on failure:
      trained state and first micro-batch at 512 px, b = 2, the four default
      guidance scales, 8 steps: a finite [0, 1] grid of (7 x 512, 2 x 512, 3),
      the launches against 176 flash and 880 GN statistics / conv per scale,
-     each scale's seconds; a ``{"validation": ...}`` line.
+     each scale's seconds; a ``{"validation": ...}`` line;
+  12. distill (``distill_phase``): ``apps/distill.py::main`` at full width
+     (512 px, bf16, rank-64 LCM-LoRA over the whole UNet, micro-batch 2)
+     from ``--random_init`` on the synthetic loader: 3 consistency steps
+     with an EMA target (0.95) and a checkpoint every 2, one more step
+     resumed from the latest checkpoint, 3 guidance steps (w pinned at 4)
+     with a checkpoint each; each run's launches against the counts the
+     code predicts (54 flash, 292 GN statistics / conv, 10 dq and dk/dv a
+     consistency step; 32 / 188 / 10 / 10 a guidance step), its
+     seconds per step and peak memory; held: finite losses, guidance step
+     1 moves every up adapter off zero and no down, step 2 every down, the
+     EMA target's recurrence and its place between its start and the online
+     adapters, the frozen weights unchanged, the checkpoints and
+     ``lcm_lora.safetensors`` read back equal, the resumed run starting at
+     step 3; a ``{"distill": ...}`` line;
+  13. distill_grad_check (``distill_grad_check_phase``): one consistency
+     micro-batch at B=1, the LCM-LoRA gradients through the kernels and
+     through the plain versions, per adapter group (down blocks, mid block,
+     up blocks, time embedding) within GRAD_TOL and per leaf within
+     LEAF_TOL; a planted dq = 0 fault must be rejected;
+  14. lcm_serving (``lcm_serving_phase``): ``apps/tryon.py::main
+     --random_init --mode lcm --lcm_lora`` on phase 12's first run's
+     adapters and three 512 px photos: a finite [0, 1] image with the lcm
+     preset's launches (88 flash, 464 GN statistics / conv), and the
+     request's time; a ``{"lcm_serving": ...}`` line;
+  15. infer (``infer_phase``): ``apps/infer.py::main --random_init`` on
+     three artifact directories of 512 px PNGs: one image at 20 steps (the
+     generation's 440 / 2,128 / 2,128 launches) and a ``--guidance_sweep
+     --steps 4`` grid of (1536, 1536, 3), the three sources and six
+     generations (528 / 2,784 / 2,784), each generation finite in [0, 1]; an
+     ``{"infer": ...}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -2459,6 +2489,463 @@ def validation_phase(dev, card: str, trained):
     return launches
 
 
+# ---------------------------------------------------------------- distill
+DISTILL_ARGV = ["--random_init", "--resolution", "512", "--train_batch_size", "2",
+                "--gradient_accumulation_steps", "1", "--lora_rank", "64",
+                "--mixed_precision", "bf16", "--logging_steps", "1", "--seed", "0"]
+DISTILL_STEPS = 3
+DISTILL_EMA = 0.95
+
+
+def distill_launches(mcn_calls: int, unet_calls: int) -> dict:
+    """The kernels' launches of one distill step at micro-batch 2, from the
+    code: the VAE encoder twice (the image, then the three VAE conds; 10
+    ResNet blocks each), ``mcn_calls`` MultiControlNet calls (the teacher's
+    CFG pair, and in consistency mode the target's; three trunk calls each)
+    and ``unet_calls`` UNet calls (the student, the teacher and in
+    consistency mode the target), their forward kernels at STEP_PARTS'
+    counts; the flash backward only in the student, whose every long
+    self-attention (down and up blocks, 10) needs dQ, dK and dV: its q, k
+    and v projections carry adapters."""
+    flash = mcn_calls * STEP_PARTS["trunks"]["flash_fwd"] + (
+        unet_calls * STEP_PARTS["unet"]["flash_fwd"])
+    conv = 2 * 2 * 10 + mcn_calls * STEP_PARTS["trunks"]["conv"] + (
+        unet_calls * STEP_PARTS["unet"]["conv"])
+    return {"flash_fwd": flash, "gn_scale_shift": conv, "fused_gn_silu_conv3x3": conv,
+            "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+
+
+DISTILL_LAUNCHES_PER_STEP = {"consistency": distill_launches(2, 3),
+                             "guidance": distill_launches(1, 2)}
+
+
+def distill_out_dir() -> str:
+    """Checkpoints and exports of the distill phase, inside the checkout
+    (git-ignored)."""
+    return os.path.join(HERE, "build", "torch_ext", "chip_smoke_distill")
+
+
+def _distill_run(dev, argv, steps: int, mode: str, rec: dict, name: str):
+    """``apps/distill.py::main`` once, with the launches and the peak
+    memory read around it alone, held against ``steps`` steps of the
+    mode's prediction; the per-step seconds (the first includes the
+    warm-up) into rec[name]."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import distill
+
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = distill.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    losses = [r["loss"] for r in res["log"]]
+    ends = [0.0] + [r["elapsed_s"] for r in res["log"]]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    want = {k: v * steps for k, v in DISTILL_LAUNCHES_PER_STEP[mode].items()}
+    rec[name] = {"mode": mode, "steps": [r["step"] for r in res["log"]], "losses": losses,
+                 "step_s": step_s, "main_wall_s": wall,
+                 "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
+                 "launches": launches, "predicted_launches": want}
+    r = rec[name]
+    print(f"distill {name} ({mode}, micro-batch 2, 512 px, rank 64, bf16): steps {r['steps']}, "
+          f"losses {losses}; seconds between log lines {[round(x, 4) for x in step_s]} (the "
+          f"first includes the warm-up, a line after a checkpoint step its save); main() wall "
+          f"{wall:.2f} s (build and checkpoints included); peak device memory of main() "
+          f"{r['peak_gib']:.2f} GiB above the {before / 2 ** 30:.2f} GiB held before it; "
+          f"launches {launches}, predicted {want}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"distill {name}: non-finite loss {losses}")
+    if launches != want:
+        fail(f"distill {name}: the kernel launches differ from the counts the code predicts")
+    return res, launches
+
+
+DISTILL_TIMED = 3
+
+
+def _distill_inputs(dev, pipe, frozen, argv):
+    """(distill config, one synthetic batch, the empty prompt's context)
+    for the distiller's flags ``argv``, as ``apps/distill.py::main`` makes
+    them."""
+    from edgestyle_tpu_torch.apps import distill, train
+    from edgestyle_tpu_torch.data.tokenizer import empty_prompt_ids
+
+    args = distill.parse_args(argv)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(train.synthetic_loader(args)).items()}
+    with torch.no_grad():
+        uctx = pipe.clip(frozen["clip"], torch.from_numpy(empty_prompt_ids()).long().to(dev))[
+            "last_hidden_state"]
+    return distill.distill_config(args), batch, uctx
+
+
+def _steady_step_s(dev, pipe, frozen, state0, argv) -> float:
+    """Median seconds of DISTILL_TIMED steps of the step function ``main``
+    runs (``make_distill_step`` of ``argv``'s config; each step ending on
+    the host, as main's log line does), after one warm-up, on a synthetic
+    micro-batch of 2 from the initial state: the steady step without the
+    checkpoints that main's log lines include."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.training.distill import make_distill_step, sample_distill_draws
+
+    dcfg, batch, uctx = _distill_inputs(dev, pipe, frozen, argv)
+    state = {k: v for k, v in state0.items() if k != "target" or dcfg.ema_decay is not None}
+    step = make_distill_step(pipe, dcfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def one():
+        return float(step(state, frozen, batch, uctx,
+                          sample_distill_draws(pipe, dcfg, batch, gen))[1]["loss"])
+
+    one()
+    s = _wall(one, DISTILL_TIMED)[0]
+    kernels.reset_launches()
+    return s
+
+
+def distill_phase(dev, card: str):
+    """The LCM-LoRA distiller's entry point at full width (SD1.5, 512 px,
+    bf16, rank 64, micro-batch 2) from ``--random_init`` on the synthetic
+    loader: run 1, consistency mode with an EMA target, DISTILL_STEPS steps,
+    a checkpoint every 2; run 2, one more step resumed from the latest
+    checkpoint; run 3, guidance mode (w pinned at 4), DISTILL_STEPS steps
+    with a checkpoint each. Held: finite losses; the launches of every run
+    against the prediction; after guidance step 1 every up has moved off
+    zero and no down has moved (its gradient is zero while the ups are),
+    after step 2 (of either mode) every down has moved; the EMA target at
+    step 3 is d * target_2 + (1 - d) * online_3 and lies between its start
+    and the online adapters; the frozen weights are unchanged; the
+    checkpoints read back equal; the resumed run starts at step 3;
+    ``lcm_lora.safetensors`` reads back bitwise. The steady s/step of each
+    mode is timed on the step function alone (:func:`_steady_step_s`).
+    Returns (launches by run,
+    the path of run 1's ``lcm_lora.safetensors``, (pipe, frozen, initial
+    state) rebuilt by ``build`` for the checks)."""
+    import shutil
+
+    from edgestyle_tpu_torch.apps import distill
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.training import checkpoint
+
+    out_dir, g_dir = distill_out_dir(), distill_out_dir() + "_guidance"
+    for d in (out_dir, g_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    rec, launches = {"card": card}, {}
+    argv1 = DISTILL_ARGV + ["--distill_mode", "consistency", "--ema_decay", str(DISTILL_EMA),
+                            "--checkpointing_steps", "2", "--output_dir", out_dir]
+    res1, launches["distill_consistency"] = _distill_run(
+        dev, argv1 + ["--max_train_steps", str(DISTILL_STEPS)], DISTILL_STEPS, "consistency",
+        rec, "consistency")
+    lcm_file = os.path.join(out_dir, "lcm_lora_run1.safetensors")
+    shutil.copy(os.path.join(out_dir, "lcm_lora.safetensors"), lcm_file)
+    if not checkpoint.states_equal(checkpoint.import_safetensors(lcm_file, dev)["lcm_lora"],
+                                   res1["state"]["lcm_lora"]):
+        fail("distill: lcm_lora.safetensors does not read back equal to the adapters")
+    res2, launches["distill_resume"] = _distill_run(
+        dev, argv1 + ["--max_train_steps", str(DISTILL_STEPS + 1), "--resume_from_checkpoint",
+                      "latest"], 1, "consistency", rec, "resume")
+    if rec["resume"]["steps"] != [DISTILL_STEPS + 1] or res2["state"]["step"] != (
+            DISTILL_STEPS + 1):
+        fail(f"distill: the resumed run logged steps {rec['resume']['steps']}, not one step "
+             f"from step {DISTILL_STEPS}")
+    res3, launches["distill_guidance"] = _distill_run(
+        dev, DISTILL_ARGV + ["--distill_mode", "guidance", "--w_min", "4", "--max_train_steps",
+                             str(DISTILL_STEPS), "--checkpointing_steps", "1",
+                             "--output_dir", g_dir], DISTILL_STEPS, "guidance", rec, "guidance")
+    for name, res in (("consistency", res1), ("guidance", res3)):
+        if rec[name]["steps"] != list(range(1, DISTILL_STEPS + 1)):
+            fail(f"distill {name}: logged steps {rec[name]['steps']}")
+
+    t0 = time.perf_counter()
+    pipe, frozen0, _, state0 = distill.build(distill.parse_args(argv1), dev)
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    for mode, flags in (("consistency", argv1), ("guidance", DISTILL_ARGV + [
+            "--distill_mode", "guidance", "--w_min", "4"])):
+        rec[mode]["steady_s_per_step"] = _steady_step_s(dev, pipe, frozen0, state0, flags)
+    init = flatten(state0["lcm_lora"])
+    ups = [k for k in init if k[-1] == "up"]
+    downs = [k for k in init if k[-1] == "down"]
+    rec["adapters"] = {"leaves": len(init), "params": sum(v.numel() for v in init.values())}
+    g1 = flatten(checkpoint.load_checkpoint(g_dir, 1, dev)["lcm_lora"])
+    if any(g1[k].abs().max().item() == 0 for k in ups):
+        fail("distill: an up adapter did not move off zero in the first step")
+    if not all(torch.equal(g1[k], init[k]) for k in downs):
+        fail("distill: a down adapter moved in the first step, where its gradient is zero")
+    for name, root in (("consistency", out_dir), ("guidance", g_dir)):
+        s2 = flatten(checkpoint.load_checkpoint(root, 2, dev)["lcm_lora"])
+        if any(torch.equal(s2[k], init[k]) for k in downs):
+            fail(f"distill {name}: a down adapter did not move by step 2")
+    # the EMA target: the step's recurrence, and between its start and the online adapters
+    s2 = checkpoint.load_checkpoint(out_dir, 2, dev)
+    s3 = checkpoint.load_checkpoint(out_dir, DISTILL_STEPS, dev)
+    if not checkpoint.states_equal(s3, res1["state"]):
+        fail("distill: the final checkpoint does not read back equal to the distilled state")
+    t2, t3, on3 = flatten(s2["target"]), flatten(s3["target"]), flatten(s3["lcm_lora"])
+    ema_err = max((t3[k] - (DISTILL_EMA * t2[k] + (1 - DISTILL_EMA) * on3[k])).abs().max().item()
+                  for k in t3)
+    def moved(a):
+        return math.sqrt(sum((a[k] - init[k]).square().sum().item() for k in init))
+
+    rec["ema"] = {"recurrence_max_abs_err": ema_err,
+                  "target_over_online_distance": moved(t3) / moved(on3)}
+    if ema_err > 1e-6 or not 0 < rec["ema"]["target_over_online_distance"] < 1:
+        fail(f"distill: the EMA target is not d * target + (1 - d) * online between its start "
+             f"and the online adapters: {rec['ema']}")
+    for name, res in (("consistency", res1), ("guidance", res3)):
+        frozen = flatten(res["frozen"])
+        if frozen.keys() != flatten(frozen0).keys() or not all(
+                torch.equal(frozen[k], v) for k, v in flatten(frozen0).items()):
+            fail(f"distill {name}: a frozen weight changed")
+    rec["frozen_leaves"] = len(flatten(frozen0))
+    print(f"distill checks: {rec['adapters']['leaves']} adapter leaves "
+          f"({rec['adapters']['params']:,} parameters); guidance step 1 moved every up and no "
+          f"down, step 2 every down (both modes); EMA recurrence max |err| {ema_err:.3e}, "
+          f"target / online distance from the start {rec['ema']['target_over_online_distance']:.4f}"
+          f"; frozen weights unchanged ({rec['frozen_leaves']} leaves); checkpoints and "
+          f"lcm_lora.safetensors read back equal; rebuild {rec['build_s']:.2f} s; steady "
+          f"s/step (make_distill_step alone, median of {DISTILL_TIMED} after a warm-up) "
+          f"consistency {rec['consistency']['steady_s_per_step']:.4f}, guidance "
+          f"{rec['guidance']['steady_s_per_step']:.4f}", flush=True)
+    print(json.dumps({"distill": rec}), flush=True)
+    shutil.rmtree(g_dir, ignore_errors=True)
+    del res1, res2, res3, s2, s3
+    return launches, lcm_file, (pipe, frozen0, state0)
+
+
+DISTILL_GROUPS = ("down_blocks", "mid_block", "up_blocks", "time_embedding")
+
+
+def distill_grad_check_phase(dev, built):
+    """One consistency micro-batch at B=1 and full width, the adapters'
+    ups given small random values (so every down's gradient is live): the
+    LCM-LoRA gradients through the kernels and through the ops' plain
+    versions, each adapter group (down blocks, mid block, up blocks, time
+    embedding) within GRAD_TOL relative L2 and each leaf within LEAF_TOL;
+    then a planted dq = 0 fault, which the same check must reject."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+    from edgestyle_tpu_torch.models import layers
+    from edgestyle_tpu_torch.ops import attention, flash, fused_conv
+    from edgestyle_tpu_torch.training import distill
+
+    pipe, frozen, state = built
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lora = {}
+    for k, v in flatten(state["lcm_lora"]).items():
+        if k[-1] == "up":
+            v = torch.randn(v.shape, generator=gen, device=dev) * (0.3 / math.sqrt(v.shape[1]))
+        lora[k] = v.clone()
+    cfg, batch, uctx = _distill_inputs(dev, pipe, frozen,
+                                       DISTILL_ARGV + ["--train_batch_size", "1"])
+    draws = distill.sample_distill_draws(pipe, cfg, batch, gen)[0]
+    mb = {k: v[0] for k, v in batch.items()}
+    sched = distill.SCHEDULE.to(dev)
+
+    def loss_and_grads():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in lora.items()}
+        loss = distill.distill_loss_fn(unflatten(leaves), None, frozen, pipe, sched, cfg, mb,
+                                       uctx, draws)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), {(next(g for g in DISTILL_GROUPS if k[0].startswith(g)),) + k: v
+                             for k, v in zip(leaves, grads)}
+
+    kernels.reset_launches()
+    loss_k, g_k = loss_and_grads()
+    launched = dict(kernels.LAUNCHES)
+    if not all(launched.values()):
+        fail(f"the distill gradient check's kernel run missed a kernel: {launched}")
+    saved = (layers.norm_act_conv3x3, attention.flash_attention)
+    layers.norm_act_conv3x3 = fused_conv.norm_act_conv3x3_reference
+    attention.flash_attention = flash.flash_attention_reference
+    try:
+        kernels.reset_launches()
+        loss_p, g_p = loss_and_grads()
+        torch.cuda.synchronize()
+        if any(kernels.LAUNCHES.values()):
+            fail("the distill gradient check's plain run launched a kernel")
+    finally:
+        layers.norm_act_conv3x3, attention.flash_attention = saved
+    dq_kernel = flash.flash_bwd_dq_cuda
+    flash.flash_bwd_dq_cuda = lambda *a: dq_kernel(*a).zero_()
+    try:
+        g_fault = loss_and_grads()[1]
+    finally:
+        flash.flash_bwd_dq_cuda = dq_kernel
+    kernels.reset_launches()
+    print(f"distill gradient check (consistency, B=1, one micro-batch, bf16, rank 64): loss "
+          f"through the kernels {loss_k:.6f}, through the plain versions {loss_p:.6f}; kernel "
+          f"launches {launched}", flush=True)
+    ok = {}
+    for what, g in (("kernels", g_k), ("planted fault dq = 0", g_fault)):
+        per_group, (key, leaf_rel, leaf_norm) = _grad_diffs(g, g_p, DISTILL_GROUPS)
+        print(f"  {what} vs plain: relative L2 difference per adapter group (tol {GRAD_TOL}) "
+              + ", ".join(f"{grp} {r:.3e} (|g_plain|_2 {n:.3e})"
+                          for grp, (r, n) in per_group.items())
+              + f"; worst leaf {'/'.join(map(str, key[1:])) if key else '-'} {leaf_rel:.3e} "
+              f"(tol {LEAF_TOL}; |g_plain|_2 {leaf_norm:.3e})", flush=True)
+        ok[what] = all(r <= GRAD_TOL for r, _ in per_group.values()) and leaf_rel <= LEAF_TOL
+    if not ok["kernels"]:
+        fail("LCM-LoRA gradients through the kernels and the plain versions disagree")
+    if ok["planted fault dq = 0"]:
+        fail("the distill gradient check passed a planted fault dq = 0")
+
+
+def lcm_serving_phase(dev, card: str, lcm_file: str):
+    """``apps/tryon.py::main --random_init --mode lcm --lcm_lora`` on the
+    distill phase's adapters and three 512 px photos made with numpy: a
+    finite [0, 1] image with the lcm preset's launches (4 steps, CFG off);
+    then the same TryOnSystem's request time (one warm-up, SERVING_TIMED
+    timed). Returns the CLI's launches."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import tryon
+    from edgestyle_tpu_torch.data.tokenizer import empty_prompt_ids
+
+    want = serving_launches(*SERVING_RUNS["lcm"][1:])
+    rec = {"card": card, "predicted_launches": want}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lcm_") as root:
+        photos = make_photos(4, 3, 512)
+        paths = []
+        for i, ph in enumerate(photos):
+            paths.append(os.path.join(root, f"photo{i}.png"))
+            Image.fromarray((ph * 255).astype(np.uint8)).save(paths[-1])
+        argv = ["--subject", paths[0], "--clothes1", paths[1], "--clothes2", paths[2],
+                "--random_init", "--mode", "lcm", "--lcm_lora", lcm_file,
+                "--out", os.path.join(root, "result.png")]
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = tryon.main(argv, device=dev)
+        torch.cuda.synchronize()
+        rec["cli_s"] = time.perf_counter() - t0
+        launches = rec["launches"] = dict(kernels.LAUNCHES)
+        check_images(torch.from_numpy(image).permute(2, 0, 1)[None], 1, "lcm_serving")
+        system = tryon.TryOnSystem(random_init=True, args=tryon.parse_args(argv), device=dev)
+        subject, c1, c2 = (tryon.load_image_512(p).astype(np.float32) / 255.0 for p in paths)
+        ids = empty_prompt_ids()
+        request = lambda: system(subject, c1, c2, ids, ids, 4, 3.5, 0)  # noqa: E731
+        request()
+        rec["request_s"], again = _wall(request, SERVING_TIMED)
+        rec["request_equals_cli"] = bool(np.array_equal(again, image))
+        del system
+    torch.cuda.empty_cache()
+    print(f"lcm_serving ({card}): try-on CLI --mode lcm --lcm_lora (the distill phase's rank-64 "
+          f"adapters, 4 steps, CFG off) {rec['cli_s']:.2f} s with the init; request "
+          f"{rec['request_s']:.4f} s (median of {SERVING_TIMED}, photos -> image); image equal "
+          f"to the CLI's: {rec['request_equals_cli']}; launches {launches}, predicted {want}",
+          flush=True)
+    print(json.dumps({"lcm_serving": rec}), flush=True)
+    if launches != want:
+        fail("lcm_serving: the kernel launches differ from the lcm preset's prediction")
+    return launches
+
+
+def write_artifact_dirs(root: str):
+    """Three artifact directories of the reference's layout, <root>/<s, c1,
+    c2>/{subject, head, openpose, clothes}/0.png, 512 px images made with
+    numpy; returns the infer flags that address them."""
+    import numpy as np
+    from PIL import Image
+
+    photos = iter(make_photos(5, 12, 512))
+    for base in ("s", "c1", "c2"):
+        for sub in ("subject", "head", "openpose", "clothes"):
+            os.makedirs(os.path.join(root, base, sub), exist_ok=True)
+            Image.fromarray((next(photos) * 255).astype(np.uint8)).save(
+                os.path.join(root, base, sub, "0.png"))
+    return ["--source_path", os.path.join(root, "s"), "--source_image_name", "0.png",
+            "--target_path", os.path.join(root, "c1"), "--target_image_name", "0.png",
+            "--target_path2", os.path.join(root, "c2"), "--target_image_name2", "0.png"]
+
+
+def infer_phase(dev, card: str):
+    """``apps/infer.py::main --random_init`` on three artifact directories
+    at full width: one image at 20 steps (a finite [0, 1] generation, the
+    PNG its uint8 image, the generation's launches), then a
+    ``--guidance_sweep --steps 4`` grid of (1536, 1536, 3): the three source
+    photos and six generations, each finite in [0, 1], with six 4-step
+    generations' launches. Returns the launches of both runs."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import infer
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline
+
+    call = EdgeStylePipeline.__call__
+    outs = []
+
+    def recorded(self, *a, **kw):
+        out = call(self, *a, **kw)
+        outs.append(out.float().cpu())
+        return out
+
+    sweep_want = {k: 6 * v for k, v in serving_launches(4, range(4), range(4)).items()}
+    rec, launches = {"card": card}, {}
+    EdgeStylePipeline.__call__ = recorded
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_infer_") as root:
+            flags = write_artifact_dirs(root)
+            for name, extra, want in (
+                    ("infer", ["--out", os.path.join(root, "r.png")], GEN_LAUNCHES_PER_REQUEST),
+                    ("infer_sweep", ["--guidance_sweep", "--steps", "4", "--result_path",
+                                     os.path.join(root, "res"), "--image_result_name", "g.png"],
+                     sweep_want)):
+                outs.clear()
+                torch.cuda.empty_cache()
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                arr = infer.main(["--random_init"] + flags + extra, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches[name] = dict(kernels.LAUNCHES)
+                path = os.path.join(root, "r.png") if name == "infer" else os.path.join(
+                    root, "res", "g.png")
+                rec[name] = {"cli_s": wall, "shape": list(arr.shape), "generations": len(outs),
+                             "launches": launches[name], "predicted_launches": want}
+                print(f"{name} ({card}): the infer CLI {wall:.2f} s with the init; image "
+                      f"{arr.shape}, {len(outs)} generations; launches {launches[name]}, "
+                      f"predicted {want}", flush=True)
+                for i, out in enumerate(outs):
+                    check_images(out, 1, f"{name} generation {i}")
+                if not np.array_equal(np.asarray(Image.open(path)), arr):
+                    fail(f"{name}: the written PNG is not the returned image")
+                if name == "infer":
+                    tile = (outs[0][0].permute(1, 2, 0).numpy() * 255).astype(np.uint8)
+                    if len(outs) != 1 or arr.shape != (512, 512, 3) or not np.array_equal(
+                            arr, tile):
+                        fail("infer: the image is not the one generation's")
+                else:
+                    _, sources = infer.resolve_artifact_paths(infer.parse_args(flags))
+                    row = (np.concatenate([infer._load(p, False)[0] for p in sources], axis=1)
+                           * 255).astype(np.uint8)
+                    if len(outs) != 6 or arr.shape != (1536, 1536, 3) or not np.array_equal(
+                            arr[:512], row):
+                        fail("infer_sweep: the grid is not the three sources and six "
+                             "generations")
+                if launches[name] != want:
+                    fail(f"{name}: the kernel launches differ from the counts the code predicts")
+    finally:
+        EdgeStylePipeline.__call__ = call
+    print(json.dumps({"infer": rec}), flush=True)
+    return launches
+
+
 def _live_trainables(state, gen):
     """A copy of the trainables with the zero-init ControlNet heads and LoRA
     ups given small random values, so that every trunk gradient is live."""
@@ -2734,6 +3221,21 @@ def main() -> int:
     validation_launches = validation_phase(dev, card, trained)
     print(f"phase validation: {time.perf_counter() - t0:.2f} s", flush=True)
     del trained
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    distill_launches_by_run, lcm_file, built = distill_phase(dev, card)
+    print(f"phase distill: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    distill_grad_check_phase(dev, built)
+    print(f"phase distill_grad_check: {time.perf_counter() - t0:.2f} s", flush=True)
+    del built
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lcm_launches = lcm_serving_phase(dev, card, lcm_file)
+    print(f"phase lcm_serving: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    infer_launches = infer_phase(dev, card)
+    print(f"phase infer: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
@@ -2744,7 +3246,8 @@ def main() -> int:
                "serving": serving_launches_total, "training": train_launches,
                "pretrained_tryon": pretrained_tryon_launches,
                "pretrained_training": pretrained_train_launches, "mined_tryon": mined_launches,
-               "data_training": data_launches, "validation": validation_launches}
+               "data_training": data_launches, "validation": validation_launches,
+               **distill_launches_by_run, "lcm_serving": lcm_launches, **infer_launches}
     out = []
     for name, source, replaces, shapes in records:
         # the record's bound is the largest shape's; exponentials are
@@ -2764,6 +3267,8 @@ def main() -> int:
         ))
         if by_path[paths[name]][name] == 0:
             fail(f"kernel {name} was never launched on its path ({paths[name]})")
+        if by_path["distill_consistency"][name] == 0:
+            fail(f"kernel {name} was never launched on the distiller's path")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

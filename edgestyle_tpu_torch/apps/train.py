@@ -161,6 +161,55 @@ def train_steps(args) -> int:
     return args.max_train_steps or args.num_train_epochs * steps_per_epoch
 
 
+def bf16_leaves(tree, select=None):
+    """``tree`` with its fp32 leaves cast to bf16 (norms too), or only the
+    leaves for which ``select(path, leaf)`` holds. A tensor found at several
+    paths (a ControlLoRA branch shares the UNet trunk's untouched leaves)
+    is cast once and stays shared."""
+    from edgestyle_tpu_torch.core.params import flatten, unflatten
+
+    cast = {}
+
+    def leaf(path, v):
+        if v.dtype != torch.float32 or (select is not None and not select(path, v)):
+            return v
+        if id(v) not in cast:
+            cast[id(v)] = v.to(torch.bfloat16)
+        return cast[id(v)]
+
+    return unflatten({k: leaf(k, v) for k, v in flatten(tree).items()})
+
+
+def build_pipeline(args, device, base_cfg, fp32_weights: bool = False, **load_kw):
+    """(pipe, gen, params): the pipeline of ``base_cfg`` (default full-width
+    SD1.5) at the dtype of ``--mixed_precision`` and the VAE sample size of
+    ``--resolution``, the generator of ``--seed``, and the weights, drawn
+    from it with ``--random_init``, else read from the three directories
+    (``load_kw`` goes on to load_pipeline_params). The weights come in the
+    pipeline's dtype, norms fp32, or with ``fp32_weights`` all in fp32,
+    through an fp32 twin of the pipeline (the same draws, unrounded)."""
+    import dataclasses
+
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.core.pretrained import load_pipeline_params
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
+
+    # the fusion blocks' LayerNorm sizes follow --resolution
+    base = base_cfg or PipelineConfig()
+    cfg = dataclasses.replace(base, vae=dataclasses.replace(base.vae,
+                                                            sample_size=args.resolution))
+    dtype = "float32" if args.mixed_precision == "no" else "bfloat16"
+    pipe = EdgeStylePipeline(dataclasses.replace(cfg, dtype=dtype), device=device)
+    src = (EdgeStylePipeline(dataclasses.replace(cfg, dtype="float32"), device=device)
+           if fp32_weights and dtype != "float32" else pipe)
+    gen = make_generator(args.seed, pipe.device)
+    if args.random_init:
+        return pipe, gen, src.init_params(gen)
+    return pipe, gen, load_pipeline_params(args.pretrained_model, args.vae,
+                                           args.openpose_controlnet, pipe=src, generator=gen,
+                                           **load_kw)
+
+
 def build(args, device="cuda", base_cfg=None):
     """The pipeline, the frozen weights, the train config and the initial
     train state: the weights from the three directories or, with
@@ -168,38 +217,20 @@ def build(args, device="cuda", base_cfg=None):
     ``base_cfg``: the model configuration (default full-width SD1.5); its
     dtype and VAE sample size come from the flags. Returns (pipe, frozen,
     tcfg, state, max_train_steps)."""
-    import dataclasses
-
-    from edgestyle_tpu_torch.core.device import make_generator
-    from edgestyle_tpu_torch.core.params import flatten, unflatten
-    from edgestyle_tpu_torch.core.pretrained import load_pipeline_params
-    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
     from edgestyle_tpu_torch.training.train_step import (
         TrainConfig,
         init_trainable,
         make_optimizer,
     )
 
-    dtype = "float32" if args.mixed_precision == "no" else "bfloat16"
-    # the fusion blocks' LayerNorm sizes follow --resolution
-    base = base_cfg or PipelineConfig()
-    pipe = EdgeStylePipeline(dataclasses.replace(
-        base, dtype=dtype, vae=dataclasses.replace(base.vae, sample_size=args.resolution)),
-        device=device)
-    gen = make_generator(args.seed, pipe.device)
-    if args.random_init:
-        params = pipe.init_params(gen)
-    else:
-        params = load_pipeline_params(args.pretrained_model, args.vae, args.openpose_controlnet,
-                                      lora_rank=args.controllora_linear_rank, pipe=pipe,
-                                      generator=gen)
+    pipe, gen, params = build_pipeline(args, device, base_cfg,
+                                       lora_rank=args.controllora_linear_rank)
     frozen = {"vae": params["vae"], "clip": params["clip"], "unet": params["unet"],
               "static": params["controlnet"]["static"]}
-    if dtype == "bfloat16":
+    if pipe.dtype == torch.bfloat16:
         # mixed precision: every frozen leaf is stored bf16 (norms too, as
         # in the JAX trainer); the trainables stay fp32 master weights
-        frozen = unflatten({k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
-                            for k, v in flatten(frozen).items()})
+        frozen = bf16_leaves(frozen)
     max_train_steps = train_steps(args)
     lr = args.learning_rate
     if args.scale_lr:
@@ -260,7 +291,8 @@ def dataset_loader(args):
     the JAX trainer's batches bit for bit from ``--seed``), its images moved
     to NCHW as the synthetic loader gives them (on the prefetch thread when
     there is one) and its ids int64; the first ``--max_train_samples``
-    examples of the index only."""
+    examples of the index only. A caller without the ``--proportion_*``
+    flags (the distiller) gets the collate's defaults, zeros."""
     from edgestyle_tpu_torch.data.dataset import EdgeStyleLocalDataset, data_loader
     from edgestyle_tpu_torch.training.train_step import BATCH_KEYS
 
@@ -270,7 +302,7 @@ def dataset_loader(args):
     loader = data_loader(
         ds, args.train_batch_size * args.gradient_accumulation_steps,
         args.gradient_accumulation_steps, seed=args.seed,
-        proportions={k: getattr(args, k) for k in PROPORTIONS},
+        proportions={k: getattr(args, k, 0.0) for k in PROPORTIONS},
         num_workers=args.dataloader_num_workers)
     for batch in loader:
         yield {k: np.ascontiguousarray(v.transpose(0, 1, 4, 2, 3)) if v.ndim == 5

@@ -145,26 +145,36 @@ def to_jax_params(tree: Mapping) -> dict:
 
 
 # ------------------------------------------------ torch-layout checkpoints
-def load_state_dict(path: str, device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
-    """A checkpoint in torch's layouts -> {key: tensor} on ``device``, in
-    the file's dtypes. ``.safetensors`` through the port's reader
-    (core/safetensors.py); anything else through a weights-only
-    ``torch.load`` (.pt / .pth / .ckpt) of a raw ``state_dict()`` or one
-    wrapped under ``"state_dict"`` (the reference's save layouts); full
-    pickled modules are refused."""
-    dev = resolve_device(device)
-    if path.endswith(".safetensors"):
-        return safetensors.load_file(path, dev)
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch .pt / .pth / .ckpt pickle -> {key: tensor} on the host, in
+    the file's dtypes: a raw ``state_dict()`` or one wrapped under
+    ``"state_dict"`` (the reference's save layouts), read weights-only; a
+    pickled module (which would need the original torch classes) is
+    refused with the JAX package's message (its core/porting.py)."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as e:  # a pickled module or other non-tensor objects
-        raise ValueError(f"{path}: not a weights-only torch checkpoint ({e}); save "
-                         "module.state_dict() instead of the module") from e
+        raise ValueError(
+            f"{path}: not a weights-only torch checkpoint ({e}). If this is a pickled "
+            "nn.Module, run torch.save(module.state_dict(), ...) in an env with the original "
+            "classes, or convert with python -m edgestyle_tpu_torch.apps.convert_checkpoint."
+        ) from e
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     if not isinstance(ckpt, dict):
         raise ValueError(f"{path}: expected a state dict, got {type(ckpt)}")
-    return {k: torch.as_tensor(v).to(dev) for k, v in ckpt.items()}
+    return {k: torch.as_tensor(v) for k, v in ckpt.items()}
+
+
+def load_state_dict(path: str, device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
+    """A checkpoint in torch's layouts -> {key: tensor} on ``device``, in
+    the file's dtypes. ``.safetensors`` through the port's reader
+    (core/safetensors.py); anything else through
+    :func:`load_torch_checkpoint`."""
+    dev = resolve_device(device)
+    if path.endswith(".safetensors"):
+        return safetensors.load_file(path, dev)
+    return {k: v.to(dev) for k, v in load_torch_checkpoint(path).items()}
 
 
 Transform = Callable[[torch.Tensor], torch.Tensor]

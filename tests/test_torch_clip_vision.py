@@ -31,6 +31,7 @@ from edgestyle_tpu_torch.models.clip_vision import (
     clip_preprocess,
 )
 from tests import golden_mirror as gm
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # the tower of tests/test_clip_vision_prompts.py (28 px: 4 patches)
 TINY_VISION_28 = dict(hidden_size=64, num_layers=3, num_heads=4, patch_size=14, image_size=28,

@@ -12,7 +12,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from edgestyle_tpu.data import dataset as jdataset
@@ -21,6 +20,7 @@ from edgestyle_tpu_torch.data import dataset, prefetch
 from edgestyle_tpu_torch.training.train_step import BATCH_KEYS
 from edgestyle_tpu_torch.models.vae import VAEConfig
 from tests.test_torch_training import TRAIN_CFG
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # The collate's images are 512 px whatever --resolution says: a VAE and a
 # cond embedding of five levels keep the TINY models' latents at 32 x 32 (the
@@ -29,17 +29,6 @@ DATA_CFG = dataclasses.replace(
     TRAIN_CFG, vae=VAEConfig(block_out_channels=(32,) * 5, layers_per_block=1),
     unet=dataclasses.replace(TRAIN_CFG.unet, cond_embedding_channels=(8, 8, 8, 8, 16)))
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this file's CPU models: alone it costs little,
-    and in a run of several workers sharing the cores it keeps the TINY
-    pipelines at 512 px from slowing tens of times under oversubscribed
-    thread pools."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 ARTS = ("processed", "openpose", "subject", "agnostic", "head", "clothes")
 ALL_HALF = dict(proportion_empty_prompts=0.5, proportion_empty_images=0.5,

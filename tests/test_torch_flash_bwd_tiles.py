@@ -27,6 +27,7 @@ import torch
 
 import edgestyle_tpu.ops.flash as jflash
 from edgestyle_tpu_torch.ops import flash
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 BWD_REL_TOL = 2.0 ** -5
 BLOCK, STEP = 128, 64  # rows a block owns, rows of the other axis per step

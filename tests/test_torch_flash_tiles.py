@@ -22,6 +22,7 @@ import torch
 
 import edgestyle_tpu.ops.flash as jflash
 from edgestyle_tpu_torch.ops import flash
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 REL_TOL = 2.0 ** -6
 LSE_TOL = 1e-2

@@ -19,6 +19,7 @@ from edgestyle_tpu_torch.models.multicontrolnet import fusion_block
 from edgestyle_tpu_torch.models.unet import SD15UNet, UNetConfig
 from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from tests import golden_mirror as gm
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.skipif(
     not __import__("os").path.exists(gm.GOLDENS_NPZ),

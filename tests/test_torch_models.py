@@ -33,6 +33,7 @@ from edgestyle_tpu_torch.models.unet import SD15UNet, UNetConfig, merge_lora
 from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from tests.test_torch_ops import nchw, nhwc
 from tests.test_unet import TINY as J_TINY
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4  # fp32 on both sides
 

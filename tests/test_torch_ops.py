@@ -26,6 +26,7 @@ from edgestyle_tpu.ops.norms import layer_norm as j_layer_norm
 from edgestyle_tpu_torch.ops import flash, fused_conv
 from edgestyle_tpu_torch.ops.attention import multi_head_attention, pick_impl
 from edgestyle_tpu_torch.ops.norms import group_norm, layer_norm
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4  # fp32 on both sides; differences are summation order only
 

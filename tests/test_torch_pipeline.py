@@ -30,6 +30,7 @@ from tests import golden_mirror as gm
 from tests.test_pipeline import TINY_PIPE as J_TINY_PIPE
 from tests.test_torch_models import TINY, TINY_CLIP, TINY_VAE, perturb
 from tests.test_torch_ops import nchw, nhwc
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

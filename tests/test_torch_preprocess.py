@@ -36,6 +36,7 @@ from edgestyle_tpu_torch.ops.resize import linear_resize, torch_bicubic_resize
 from tests import golden_mirror as gm
 from tests.test_efficientvit import TINY_BB as J_TINY_BB
 from tests.test_openpose import FULL_KPS, _synthetic_pose_maps
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TINY_BB = BackboneConfig(width_list=(8, 16, 32, 64, 96), depth_list=(1, 1, 1, 1, 1), qkv_dim=8)
 J_TINY_SAM = JSamConfig(backbone=J_TINY_BB, neck_depth=1, image_size=32)

@@ -50,6 +50,7 @@ from tests import golden_mirror as gm
 from tests import torch_sd15
 from tests.test_torch_goldens import scaled_close, t
 from tests.test_torch_training import TRAIN_CFG
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CL = torch.channels_last
 # CLIP text towers at the MID UNet's cross-attention width (and at

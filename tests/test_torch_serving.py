@@ -48,6 +48,7 @@ from tests.test_torch_models import TINY, perturb, port
 from tests.test_torch_ops import nchw, nhwc
 from tests.test_torch_pipeline import TINY_PIPE
 from tests.test_unet import TINY as J_TINY
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4      # one fp32 module on both sides
 PIPE_ATOL = 1e-3  # [0, 1] images after a few steps, as tests/test_torch_pipeline.py

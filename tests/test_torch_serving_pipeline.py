@@ -25,6 +25,7 @@ from tests.test_torch_models import perturb
 from tests.test_torch_ops import nchw, nhwc
 from tests.test_torch_pipeline import TINY_PIPE
 from tests.test_torch_serving import PIPE_ATOL, TURBO, tome_cfgs
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 PATTERN = (0, None)
 J_PIPE = dataclasses.replace(J_TINY_PIPE, pattern=PATTERN)

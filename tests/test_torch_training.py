@@ -40,6 +40,7 @@ from edgestyle_tpu_torch.training.schedules import NAMES, build_lr_schedule
 from tests.test_pipeline import TINY_PIPE as J_TINY_PIPE
 from tests.test_torch_models import perturb, port
 from tests.test_torch_pipeline import TINY_PIPE
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TIMESTEPS = np.array([0, 10, 250, 500, 999])
 

@@ -33,6 +33,7 @@ from tests.test_torch_models import perturb, port
 from tests.test_torch_ops import nchw
 from tests.test_torch_pipeline import TINY_PIPE
 from tests.test_torch_training import H, close_tree
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def jax_draws(r, b):

@@ -23,6 +23,7 @@ from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline
 from tests.fused_golden import GOLDEN_NPZ, build_fused
 from tests.test_torch_pipeline import TINY_PIPE
 from tests.test_torch_preprocess import TINY_SAM, nchw, nhwc
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

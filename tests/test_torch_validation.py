@@ -22,21 +22,10 @@ from edgestyle_tpu_torch.training import validation
 from edgestyle_tpu_torch.training.train_step import init_trainable
 from edgestyle_tpu_torch.utils import metrics
 from tests.test_torch_pipeline import TINY_PIPE
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 IMAGE_KEYS = ("original", "agnostic", "head", "original_openpose", "clothes", "clothes_openpose",
               "clothes2", "clothes_openpose2")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this file's CPU models: alone it costs little,
-    and in a run of several workers sharing the cores it keeps the TINY
-    pipelines at 512 px from slowing tens of times under oversubscribed
-    thread pools."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
