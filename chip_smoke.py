@@ -56,6 +56,31 @@ Phases, each of which ends the run with a non-zero exit on failure:
      kernels against the ops' plain versions (4 steps) within the
      end-to-end tolerance, ToMe's merge rows on the card equal the CPU's; a
      ``{"serving": ...}`` line holds its numbers;
+  4d. int8 (``int8_phase``): W8A8 int8 serving. The op check: at the
+     denoise step's hot shapes (3x3 convs (6, 320, 64, 64) -> 320, the
+     up-block concat (6, 960, 64, 64) -> 320, (2, 1280, 8, 8) -> 1280 and a
+     stride-2 downsample; Dense (2, 4096, 320) -> 320 and a (2, 77, 768) ->
+     320 cross-attention K) the card's route (im2col + ``torch._int_mm``)
+     against the plain route on the CPU (fp64, exact): weight and
+     activation q and s, int32 accumulators and dequantised outputs bit for
+     bit, a shifted im2col tap and a weight scale one ulp off each rejected;
+     the int8 op's, ``_int_mm``'s (beside its int8 bound), the bf16 fused
+     conv's and cuDNN's ``F.conv2d`` times. Then "int8" and "int8-static"
+     (calibrated here, its table saved) beside the exact program at 512 px,
+     20 UniPC steps, B=1 and B=2: walls, each generation's launches (440
+     flash, only the VAE's 48 GN statistics / fused conv) and int8 products
+     (178 convs and 444 Dense a step) against the prediction, the mean
+     |int8 - exact| read (not held), and the saved table in a fresh
+     pipeline reproducing its image bit for bit; an ``{"int8": ...}`` line;
+  4e. serve (``serve_phase``): apps/serve.py's server in this process on
+     127.0.0.1 (a free port), ``--random_init --max_batch 2``, the
+     generation's pipeline and params, EDGESTYLE_QUANT unset: /healthz,
+     three concurrent 512 px requests at 20 steps of which two coalesce into
+     one B=2 generation, each of those two served alone by a server without
+     batching and compared (SERVE_MEAN_TOL / SERVE_MAX_TOL), a malformed
+     request's 400 and a request after it; then ``--int8_scales`` (4d's
+     table) with EDGESTYLE_QUANT=int8-static, one request; a ``{"serve":
+     ...}`` line;
   5. training phase: the ControlLoRA trainer's entry point
      (``apps/train.py::main``) at full width, 512 px, micro-batch 2, 3
      steps of Prodigy with Min-SNR-gamma 5, from the port's random init,
@@ -1068,6 +1093,449 @@ def serving_phase(dev, pipe, params, gen, card: str, profile_dir=None):
     print(json.dumps({"serving": rec}), flush=True)
     if bad:
         fail("serving: " + "; ".join(bad))
+    return totals
+
+
+# ------------------------------------------------------------------ int8
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate, the same data sheet
+# The int8 op check: the denoise step's hot int8 products at B=1 with its
+# guidance pair (the static trunk's three branches: 6 rows).
+# (name, B, Cin, H, W, Cout, kernel, stride) for convs.
+INT8_CONV_SHAPES = [
+    ("resnet 6x320x64x64->320", 6, 320, 64, 64, 320, 3, 1),
+    ("up-block concat 6x960x64x64->320", 6, 960, 64, 64, 320, 3, 1),
+    ("mid 2x1280x8x8->1280", 2, 1280, 8, 8, 1280, 3, 1),
+    ("downsample 6x320x64x64->320 stride 2", 6, 320, 64, 64, 320, 3, 2),
+]
+# (name, x shape, features) for Dense layers
+INT8_DENSE_SHAPES = [("token 2x4096x320->320", (2, 4096, 320), 320),
+                     ("cross-attention K 2x77x768->320", (2, 77, 768), 320)]
+# int8 products of one denoise step at SD1.5 width (the code's structure:
+# ops/quant.py COUNTS), with CFG: the UNet's 64 convs (22 ResNet blocks x 2,
+# 14 shortcuts, 3 downsamplers, 3 upsamplers) and 192 Dense (16
+# Transformer2Ds x 12: proj_in, proj_out, 8 attention projections, the
+# GEGLU's two), and each of the 3 trunk calls' 38 convs (10 ResNet blocks x
+# 2, 2 shortcuts, 3 downsamplers, 13 zero-conv heads) and 84 Dense.
+INT8_PER_STEP = {"conv": 64 + 3 * 38, "dense": 192 + 3 * 84}
+# Launches of an int8 generation: the flash forward as the exact program's;
+# no GN statistics or fused conv inside the steps, only the VAE's 24 ResNet
+# blocks (the encode of the three VAE conds and the decode).
+INT8_LAUNCHES = {"flash_fwd": 22 * GEN_STEPS, "gn_scale_shift": VAE_CONV_LAUNCHES,
+                 "fused_gn_silu_conv3x3": VAE_CONV_LAUNCHES, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}
+INT8_WALL_REPS = 2
+
+
+def _int8_conv_case(gen_cpu, b, cin, h, w, cout, k):
+    x = torch.randn((b, cin, h, w), generator=gen_cpu).to(torch.bfloat16)
+    kern = torch.randn((cout, cin, k, k), generator=gen_cpu) / math.sqrt(k * k * cin)
+    bias = torch.randn((cout,), generator=gen_cpu).to(torch.bfloat16)
+    return (x.contiguous(memory_format=torch.channels_last),
+            kern.to(torch.bfloat16).contiguous(memory_format=torch.channels_last), bias)
+
+
+def int8_op_check(dev, card: str) -> list:
+    """The int8 route on the card against the plain route on the CPU at the
+    denoise step's hot shapes: q and s of weight and activation, the int32
+    accumulators and the dequantised outputs bit for bit (each is the same
+    true division, round half to even, exact integer sum and fp32 epilogue
+    on both), a planted fault of each kind rejected (one im2col tap shifted
+    by a pixel; one weight scale one fp32 ulp off); and the times: the whole
+    int8 op, ``torch._int_mm`` alone against its bound, the bf16 fused conv
+    op (stride 1) and cuDNN's bf16 ``F.conv2d`` (``F.linear`` for a Dense)."""
+    from edgestyle_tpu_torch.ops import fused_conv, quant
+
+    gen_cpu = torch.Generator().manual_seed(11)
+    cpu = torch.device("cpu")
+    rows, bad = [], []
+
+    def same(what, a, b):
+        if not torch.equal(a.cpu(), b.cpu()):
+            bad.append(f"{what}: card != plain route")
+
+    for name, b, cin, h, w, cout, k, stride in INT8_CONV_SHAPES:
+        x, kern, bias = _int8_conv_case(gen_cpu, b, cin, h, w, cout, k)
+        got = []
+        for d in (dev, cpu):
+            qk = quant.quantize_params({"c": {"kernel": kern.to(d)}})["c"]["kernel"]
+            qx, sx = quant.quantize_activation(x.to(d))
+            acc = quant.conv_int32(qx, qk, stride, 1)
+            got.append((qk, qx, sx, acc, quant.dequantize(acc, sx, qk.s, bias.to(d),
+                                                          torch.bfloat16)))
+        (qk, qx, sx, acc, out), (qk_c, qx_c, sx_c, acc_c, out_c) = got
+        for what, a, p in (("weight q", qk.q, qk_c.q), ("weight s", qk.s, qk_c.s),
+                           ("activation q", qx, qx_c), ("activation s", sx, sx_c),
+                           ("int32 accumulator", acc, acc_c), ("output", out, out_c)):
+            same(f"{name} {what}", a, p)
+        err = (out.float().cpu() - out_c.float()).abs().max().item()
+        # planted faults: one im2col tap shifted by a pixel; one scale an ulp off
+        cols, ho, wo = quant.im2col(qx, k, k, stride, 1)
+        tap = cols[:, :cin].reshape(b, ho, wo, cin).roll(1, dims=2).reshape(-1, cin)
+        shifted = torch.cat([tap, cols[:, cin:]], dim=1)
+        bad_acc = torch._int_mm(shifted, qk.matrix().t()).reshape(acc.shape)
+        if torch.equal(bad_acc.cpu(), acc_c):
+            bad.append(f"{name}: a shifted im2col tap went unnoticed")
+        s_ulp = qk.s.clone()
+        s_ulp[0] = torch.nextafter(s_ulp[0], torch.tensor(float("inf"), device=dev))
+        if torch.equal(quant.dequantize(acc, sx, s_ulp, bias.to(dev), torch.float32).cpu(),
+                       quant.dequantize(acc_c, sx_c, qk_c.s, bias, torch.float32)):
+            bad.append(f"{name}: a weight scale one ulp off went unnoticed")
+        # times
+        xd, kd, bd = x.to(dev), kern.to(dev), bias.to(dev)
+        wmat = qk.matrix()
+        m, kk = cols.shape
+        int_mm_bound, int_mm_by = bound_ms(2.0 * m * cout * kk, m * kk + kk * cout + 4 * m * cout,
+                                           peak=PEAK_INT8_OPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        quant.quant_conv(xd, qk, bd, torch.bfloat16, stride, 1)
+        torch.cuda.synchronize()
+        row = dict(shape=name, max_abs_err=err,
+                   int8_op_ms=time_ms(lambda: quant.quant_conv(xd, qk, bd, torch.bfloat16,
+                                                               stride, 1)),
+                   int_mm_ms=time_ms(lambda: torch._int_mm(cols, wmat.t())),
+                   int_mm_bound_ms=int_mm_bound, int_mm_bound_by=int_mm_by,
+                   conv2d_bf16_ms=time_ms(lambda: F.conv2d(xd, kd, bd, stride=stride,
+                                                           padding=1)),
+                   fused_conv_bf16_ms=None, im2col_bytes=cols.numel(),
+                   int8_op_peak_extra_bytes=torch.cuda.max_memory_allocated() - base)
+        if stride == 1:
+            gamma = torch.ones(cin, device=dev)
+            beta = torch.zeros(cin, device=dev)
+            row["fused_conv_bf16_ms"] = time_ms(lambda: fused_conv.norm_act_conv3x3(
+                xd, gamma, beta, kd, bd))
+            row["int8_resnet_conv_ms"] = time_ms(lambda: fused_conv.norm_act_conv3x3(
+                xd, gamma, beta, qk, bd))
+        rows.append(row)
+        del cols, shifted, bad_acc
+    for name, shape, feats in INT8_DENSE_SHAPES:
+        x = torch.randn(shape, generator=gen_cpu).to(torch.bfloat16)
+        kern = (torch.randn((feats, shape[-1]), generator=gen_cpu) / math.sqrt(shape[-1])
+                ).to(torch.bfloat16)
+        got = []
+        for d in (dev, cpu):
+            qk = quant.quantize_params({"d": {"kernel": kern.to(d)}})["d"]["kernel"]
+            qx, sx = quant.quantize_activation(x.to(d))
+            acc = quant.dense_int32(qx, qk)
+            got.append((qk, qx, acc, quant.dequantize(acc, sx, qk.s, None, torch.bfloat16)))
+        (qk, qx, acc, out), (qk_c, qx_c, acc_c, out_c) = got
+        for what, a, p in (("weight q", qk.q, qk_c.q), ("weight s", qk.s, qk_c.s),
+                           ("activation q", qx, qx_c), ("int32 accumulator", acc, acc_c),
+                           ("output", out, out_c)):
+            same(f"{name} {what}", a, p)
+        a2 = qx.reshape(-1, shape[-1])
+        m, kk = a2.shape
+        xd, kd = x.to(dev), kern.to(dev)
+        int_mm_bound, int_mm_by = bound_ms(2.0 * m * feats * kk,
+                                           m * kk + kk * feats + 4 * m * feats, peak=PEAK_INT8_OPS)
+        rows.append(dict(shape=name, max_abs_err=(out.float().cpu() - out_c.float())
+                         .abs().max().item(),
+                         int8_op_ms=time_ms(lambda: quant.quant_dense(xd, qk, None,
+                                                                      torch.bfloat16)),
+                         int_mm_ms=time_ms(lambda: torch._int_mm(a2, qk.q.t())),
+                         int_mm_bound_ms=int_mm_bound, int_mm_bound_by=int_mm_by,
+                         linear_bf16_ms=time_ms(lambda: F.linear(xd, kd))))
+    for r in rows:
+        print(f"int8 op {r['shape']} ({card}): card == plain route bit for bit (max_abs_err "
+              f"{r['max_abs_err']:.3e}); int8 op {r['int8_op_ms']:.4f} ms, _int_mm "
+              f"{r['int_mm_ms']:.4f} ms (bound {r['int_mm_bound_ms']:.4f} ms by "
+              f"{r['int_mm_bound_by']}), "
+              + (f"bf16 F.conv2d {r['conv2d_bf16_ms']:.4f} ms, bf16 fused conv "
+                 f"{r['fused_conv_bf16_ms']} ms, int8 ResNet conv (GN+SiLU+int8) "
+                 f"{r.get('int8_resnet_conv_ms')} ms, im2col {r['im2col_bytes'] / 1e6:.1f} MB, "
+                 f"op peak extra {r['int8_op_peak_extra_bytes'] / 1e6:.1f} MB"
+                 if "conv2d_bf16_ms" in r else f"bf16 F.linear {r['linear_bf16_ms']:.4f} ms"),
+              flush=True)
+    if bad:
+        fail("int8 op check: " + "; ".join(bad))
+    return rows
+
+
+def int8_phase(dev, pipe, params, gen, card: str):
+    """W8A8 int8 serving at full width (module docstring, phase 4d): the op
+    check, then "int8" and "int8-static" generations (512 px, 20 UniPC steps)
+    on the generation phase's params beside the exact pipeline: B=1 and B=2
+    walls, the launches and int8 products of each generation against the
+    prediction (no GN statistics or fused conv launch in the steps),
+    calibration saved, reloaded into a fresh pipeline and reproducing its
+    image bit for bit. Returns (the int8 generations' launches, the saved
+    table's path)."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.ops import quant
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline
+
+    rec = {"card": card, "ops": int8_op_check(dev, card)}
+    cfg = pipe.cfg
+    pipes = {"exact": pipe, "int8": EdgeStylePipeline(cfg, device=dev, quant="int8"),
+             "int8-static": EdgeStylePipeline(cfg, device=dev, quant="int8-static")}
+    req1 = make_request(gen, dev, 1, cfg.num_branches, cfg.latent_branches)
+    req2 = make_request(gen, dev, 2, cfg.num_branches, cfg.latent_branches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipes["int8-static"].calibrate_int8(params, *req1[:3])
+    torch.cuda.synchronize()
+    rec["calibrate_s"] = time.perf_counter() - t0
+    table = os.path.join(int8_out_dir(), "int8_scales.json")
+    pipes["int8-static"].save_int8_scales(table)
+    rec["table_entries"] = len(pipes["int8-static"]._int8_scales)
+
+    def run(mode, req, g):
+        return pipes[mode](params, *req[:3], latents=req[3], num_inference_steps=GEN_STEPS,
+                           guidance_scale=g)
+
+    bad, images, totals = [], {}, {k: 0 for k in kernels.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("exact", "int8", "int8-static"):
+        run(mode, req1, 3.5)  # warm-up
+        walls = {}
+        for b, req, g in ((1, req1, 3.5), (2, req2, [3.5, 7.5])):
+            times = []
+            for _ in range(INT8_WALL_REPS):
+                kernels.reset_launches()
+                quant.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(mode, req, g)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                check_images(out, b, f"int8 {mode} B={b}")
+                launches, products = dict(kernels.LAUNCHES), dict(quant.COUNTS)
+                if mode != "exact":
+                    for k, v in launches.items():
+                        totals[k] += v
+                    want = {k: v * GEN_STEPS for k, v in INT8_PER_STEP.items()}
+                    if launches != INT8_LAUNCHES or products != want:
+                        bad.append(f"{mode} B={b}: launches {launches} (predicted "
+                                   f"{INT8_LAUNCHES}), int8 products {products} (predicted "
+                                   f"{want})")
+            walls[f"b{b}"] = times
+            images[(mode, b)] = out
+        rec[mode] = dict(wall_s=walls, launches_per_generation=launches,
+                         int8_products_per_generation=products)
+        print(f"int8 phase {mode} ({card}): B=1 wall {', '.join(f'{t:.3f}' for t in walls['b1'])}"
+              f" s, B=2 wall {', '.join(f'{t:.3f}' for t in walls['b2'])} s; launches per "
+              f"generation {launches}, int8 products {products}", flush=True)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for mode in ("int8", "int8-static"):
+        d = (images[(mode, 1)] - images[("exact", 1)]).abs()
+        rec[mode]["mean_abs_diff_from_exact_b1"] = d.mean().item()
+        rec[mode]["max_abs_diff_from_exact_b1"] = d.max().item()
+    # the saved table in a fresh pipeline: the same image bit for bit
+    fresh = EdgeStylePipeline(cfg, device=dev, quant="int8-static")
+    fresh.load_int8_scales(table)
+    again = fresh(params, *req1[:3], latents=req1[3], num_inference_steps=GEN_STEPS,
+                  guidance_scale=3.5)
+    rec["reloaded_table_equal_bitwise"] = bool(torch.equal(again, images[("int8-static", 1)]))
+    if not rec["reloaded_table_equal_bitwise"]:
+        bad.append("the reloaded table's image differs from the calibrated pipeline's")
+    print(f"int8 phase checks ({card}): calibration {rec['calibrate_s']:.3f} s, "
+          f"{rec['table_entries']} keys; mean |int8 - exact| (B=1, read, not held) "
+          f"{rec['int8']['mean_abs_diff_from_exact_b1']:.4f}, int8-static "
+          f"{rec['int8-static']['mean_abs_diff_from_exact_b1']:.4f}; reloaded table bit for "
+          f"bit {rec['reloaded_table_equal_bitwise']}; peak {rec['peak_gib']:.2f} GiB",
+          flush=True)
+    print(json.dumps({"int8": rec}), flush=True)
+    if bad:
+        fail("int8: " + "; ".join(bad))
+    return totals, table
+
+
+def int8_out_dir() -> str:
+    """The int8 phase's calibration table, inside the checkout (git-ignored)."""
+    d = os.path.join(HERE, "build", "torch_ext", "chip_smoke_int8")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+# ----------------------------------------------------------------- serve
+SERVE_STEPS = 20
+SERVE_WINDOW_MS = 1000.0  # long enough that two of three concurrent requests coalesce
+# A coalesced response against the same request served alone, uint8 PNG
+# levels: the B=2 generation runs other cuBLAS / cuDNN algorithms and other
+# split counts of the fused conv, whose bf16 sums round apart over 20 steps,
+# and its photos went through the batched preprocessing (COND_SHARE_TOL).
+# Measured on the H100: mean 0.56 and 0.65, max 5 and 6 levels; the limits
+# leave three to five times that.
+SERVE_MEAN_TOL = 2.0
+SERVE_MAX_TOL = 32
+
+
+def _png_b64(arr01) -> str:
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray((np.asarray(arr01) * 255).astype(np.uint8)).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _http(url: str, body: bytes = None, timeout: float = 300.0):
+    """(status, content type, body, seconds) of a GET (body None) or POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers["Content-Type"], r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read(), time.perf_counter() - t0
+
+
+def _start_server(args, system, dev):
+    import threading
+
+    from edgestyle_tpu_torch.apps import serve
+
+    srv = serve.build_server(args, system, dev)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def serve_phase(dev, pipe, params, card: str, table: str):
+    """apps/serve.py's server in this process (module docstring, phase 4e)
+    on the generation phase's pipeline and params, 127.0.0.1, a free port,
+    ``--random_init --max_batch 2``, EDGESTYLE_QUANT unset: /healthz, three
+    concurrent 512 px requests at 20 steps (two coalesce into one B=2
+    generation), each coalesced request served again alone and compared, a
+    malformed request's 400 and a request after it; then a server with
+    ``--int8_scales`` (int8_phase's table) and EDGESTYLE_QUANT=int8-static,
+    one request. Returns the kernels' launches of the phase."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import serve
+    from edgestyle_tpu_torch.apps.tryon import TryOnSystem
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline
+
+    os.environ.pop("EDGESTYLE_QUANT", None)
+    base = ["--host", "127.0.0.1", "--port", "0", "--random_init", "--steps", str(SERVE_STEPS)]
+    argv = base + ["--max_batch", "2", "--batch_window_ms", str(SERVE_WINDOW_MS)]
+    args = serve.parse_args(argv)
+    system = TryOnSystem(random_init=True, args=args, device=dev, pipe=pipe, gen_params=params)
+    batches = []
+    generate_batch = system.generate_batch
+
+    def recorded(conds, *a, seeds, **kw):
+        batches.append(list(seeds))
+        return generate_batch(conds, *a, seeds=seeds, **kw)
+
+    system.generate_batch = recorded
+    photos = make_photos(3, 9, 512)
+    bodies = {seed: json.dumps({"subject": _png_b64(photos[3 * j]),
+                                "clothes1": _png_b64(photos[3 * j + 1]),
+                                "clothes2": _png_b64(photos[3 * j + 2]),
+                                "seed": seed, "guidance": 3.5 + j}).encode()
+              for j, seed in enumerate((101, 102, 103))}
+    rec, bad = {"card": card, "argv": argv}, []
+    kernels.reset_launches()
+    srv, url = _start_server(args, system, dev)
+    try:
+        status, _, body, _ = _http(url + "/healthz")
+        if status != 200 or json.loads(body) != {"ok": True}:
+            fail(f"serve: /healthz answered {status} {body!r}")
+        # warm-up: one request alone (cuBLAS plans, lazy loads), not compared
+        _http(url + "/tryon", bodies[101])
+        batches.clear()
+
+        def post(seed):
+            return seed, _http(url + "/tryon", bodies[seed])
+
+        with ThreadPoolExecutor(3) as pool:
+            done = dict(pool.map(post, (101, 102, 103)))
+        images = {}
+        for seed, (status, ctype, body, secs) in done.items():
+            if status != 200 or ctype != "image/png":
+                fail(f"serve: request {seed} answered {status} {ctype} {body[:200]!r}")
+            images[seed] = np.asarray(Image.open(io.BytesIO(body))).astype(np.int16)
+            if images[seed].shape != (512, 512, 3) or images[seed].std() == 0:
+                fail(f"serve: request {seed} gave an image of shape {images[seed].shape}, "
+                     f"std {images[seed].std()}")
+        rec["concurrent_s"] = {str(s): done[s][3] for s in done}
+        rec["batches"] = list(batches)
+        pairs = [b for b in batches if len(b) == 2]
+        if sorted(len(b) for b in batches) != [1, 2] or not pairs:
+            fail(f"serve: three concurrent requests ran as generations {batches}, not one of "
+                 f"two and one alone")
+        status, ctype, body, _ = _http(url + "/tryon", b"{not json")
+        rec["malformed_status"] = status
+        if status != 400 or "error" not in json.loads(body):
+            bad.append(f"a malformed request got {status} {body[:200]!r}")
+        status, _, body, secs = _http(url + "/tryon", bodies[103])
+        if status != 200:
+            bad.append(f"the request after the malformed one got {status}")
+        rec["after_malformed_s"] = secs
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    # each coalesced request alone: the same system behind a server without
+    # batching (--max_batch 1: the handler runs prepare_cond and generate)
+    srv1, url1 = _start_server(serve.parse_args(base), system, dev)
+    try:
+        rec["alone"] = {}
+        for seed in pairs[0]:
+            status, ctype, body, secs = _http(url1 + "/tryon", bodies[seed])
+            if status != 200 or ctype != "image/png":
+                fail(f"serve: request {seed} alone answered {status} {ctype} {body[:200]!r}")
+            alone = np.asarray(Image.open(io.BytesIO(body))).astype(np.int16)
+            d = np.abs(alone - images[seed])
+            rec["alone"][str(seed)] = dict(s=secs, mean_abs_diff=float(d.mean()),
+                                           max_abs_diff=int(d.max()))
+            if not (d.mean() <= SERVE_MEAN_TOL and d.max() <= SERVE_MAX_TOL):
+                bad.append(f"request {seed} coalesced vs alone: mean {d.mean():.3f} max "
+                           f"{d.max()} levels (tol {SERVE_MEAN_TOL}, {SERVE_MAX_TOL})")
+    finally:
+        srv1.shutdown()
+        srv1.server_close()
+    totals = dict(kernels.LAUNCHES)
+
+    # int8-static from the table int8_phase saved, through --int8_scales
+    os.environ["EDGESTYLE_QUANT"] = "int8-static"
+    try:
+        args8 = serve.parse_args(base + ["--int8_scales", table])
+        pipe8 = EdgeStylePipeline(pipe.cfg, device=dev)
+        system8 = TryOnSystem(random_init=True, args=args8, device=dev, pipe=pipe8,
+                              gen_params=params)
+        if pipe8.quant != "int8-static" or pipe8._int8_scales is None:
+            fail("serve: EDGESTYLE_QUANT=int8-static with --int8_scales did not load the table")
+        kernels.reset_launches()
+        srv8, url8 = _start_server(args8, system8, dev)
+        try:
+            status, ctype, body, secs = _http(url8 + "/tryon", bodies[101])
+        finally:
+            srv8.shutdown()
+            srv8.server_close()
+        if status != 200 or ctype != "image/png":
+            fail(f"serve: the int8-static request answered {status} {body[:200]!r}")
+        img8 = np.asarray(Image.open(io.BytesIO(body)))
+        rec["int8_static"] = dict(s=secs, launches=dict(kernels.LAUNCHES),
+                                  image_std=float(img8.std()))
+        if img8.shape != (512, 512, 3) or img8.std() == 0:
+            bad.append(f"the int8-static image has shape {img8.shape}, std {img8.std()}")
+        if kernels.LAUNCHES["fused_gn_silu_conv3x3"] != VAE_CONV_LAUNCHES:
+            bad.append(f"the int8-static request launched the fused conv "
+                       f"{kernels.LAUNCHES['fused_gn_silu_conv3x3']} times, not the VAE's "
+                       f"{VAE_CONV_LAUNCHES}")
+        for k, v in kernels.LAUNCHES.items():
+            totals[k] += v
+    finally:
+        os.environ.pop("EDGESTYLE_QUANT", None)
+    print(f"serve ({card}): three concurrent requests in {rec['concurrent_s']} s, as "
+          f"generations {rec['batches']}; coalesced vs alone {rec['alone']} (tol mean "
+          f"{SERVE_MEAN_TOL}, max {SERVE_MAX_TOL} levels); malformed -> "
+          f"{rec['malformed_status']}; int8-static request {rec['int8_static']['s']:.3f} s",
+          flush=True)
+    print(json.dumps({"serve": rec}), flush=True)
+    if bad:
+        fail("serve: " + "; ".join(bad))
     return totals
 
 
@@ -3198,6 +3666,12 @@ def main() -> int:
     e2e_phase(dev, pipe, params, gen)
     tryon_launches = tryon_system_phase(dev, pipe, params, card)
     serving_launches_total = serving_phase(dev, pipe, params, gen, card, args.profile)
+    t0 = time.perf_counter()
+    int8_launches, int8_table = int8_phase(dev, pipe, params, gen, card)
+    print(f"phase int8: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    serve_launches = serve_phase(dev, pipe, params, card, int8_table)
+    print(f"phase serve: {time.perf_counter() - t0:.2f} s", flush=True)
     del pipe, params
     torch.cuda.empty_cache()
 
@@ -3243,7 +3717,8 @@ def main() -> int:
              "fused_gn_silu_conv3x3": "generation", "flash_bwd_dq": "training",
              "flash_bwd_dkv": "training"}
     by_path = {"generation": launches, "tryon_system": tryon_launches,
-               "serving": serving_launches_total, "training": train_launches,
+               "serving": serving_launches_total, "int8": int8_launches,
+               "serve": serve_launches, "training": train_launches,
                "pretrained_tryon": pretrained_tryon_launches,
                "pretrained_training": pretrained_train_launches, "mined_tryon": mined_launches,
                "data_training": data_launches, "validation": validation_launches,

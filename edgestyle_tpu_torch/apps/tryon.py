@@ -17,10 +17,13 @@ file; core/pretrained.py); the tokenizer, ``--fused``; the serving knobs
 their ``--mode`` presets (:func:`apply_serving_mode`), ``--lcm_lora``
 adapters merged into the UNet, and the prompt mined from the first garment
 photo by CLIP (``--clip_model``, a CLIPModel safetensors directory, with
-``--tokenizer_dir`` and no ``--prompt``; data/prompts.py). Every flag
-that asks for something not ported raises ``NotImplementedError`` naming
-its ROADMAP item (:func:`refuse_unported`); with ``--random_init`` the
-weight flags are ignored, as in the JAX app.
+``--tokenizer_dir`` and no ``--prompt``; data/prompts.py), and W8A8 int8
+serving (``EDGESTYLE_QUANT=int8`` or ``int8-static``, the latter with a
+calibration table from ``--int8_scales`` or calibrated on the first
+request). ``TryOnSystem.generate_batch`` runs several requests as one
+generation (apps/serve.py's dynamic batching). ``--exported_dir`` raises
+``NotImplementedError`` naming its ROADMAP item (:func:`refuse_unported`);
+with ``--random_init`` the weight flags are ignored, as in the JAX app.
 
     python -m edgestyle_tpu_torch.apps.tryon --random_init \\
         --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
@@ -65,7 +68,6 @@ from edgestyle_tpu_torch.pipelines.tryon import SCHEDULERS, EdgeStylePipeline, P
 from edgestyle_tpu_torch.training.checkpoint import import_safetensors
 from edgestyle_tpu_torch.training.distill import apply_lcm_lora
 
-ROADMAP_KNOBS = "ROADMAP.md Queue 1 item 12"
 ROADMAP_APPS = "ROADMAP.md Queue 1 item 15"
 CANVAS = 512  # pose renders and SAM run at the 512 px working size
 
@@ -139,12 +141,9 @@ def serving_kwargs(args) -> Dict:
     return kw
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="EdgeStyle end-to-end try-on (PyTorch/CUDA)")
-    p.add_argument("--subject", type=str, required=True)
-    p.add_argument("--clothes1", type=str, required=True)
-    p.add_argument("--clothes2", type=str, required=True)
-    # model sources (the reference's load surface, extract_dataset.py:44-58)
+def add_model_source_args(p):
+    """The checkpoint-source flags that the try-on and the server share (the
+    reference's load surface, extract_dataset.py:44-58)."""
     p.add_argument("--pretrained_model", "--pretrained_model_name_or_path", type=str,
                    default=None, dest="pretrained_model")
     p.add_argument("--vae", "--pretrained_vae_name_or_path", type=str, default=None, dest="vae")
@@ -161,7 +160,10 @@ def parse_args(argv=None):
     p.add_argument("--sam_head", type=str, default=None)
     p.add_argument("--bodypose_checkpoint", type=str, default=None)
     p.add_argument("--exported_dir", type=str, default=None)
-    p.add_argument("--int8_scales", type=str, default=None)
+    p.add_argument("--int8_scales", type=str, default=None,
+                   help="JSON calibration table for EDGESTYLE_QUANT=int8-static "
+                        "(EdgeStylePipeline.save_int8_scales, either package's); skips the "
+                        "first-request calibration")
     p.add_argument("--scheduler", type=str, default=None, choices=("unipc", "dpm++", "lcm"),
                    help="denoise sampler: unipc (the reference app's), dpm++ "
                         "(DPM-Solver++ 2M) or lcm (few-step, for --lcm_lora; pair it with "
@@ -170,6 +172,29 @@ def parse_args(argv=None):
                    help="LCM-LoRA adapters (a safetensors file whose 'lcm_lora' tree "
                         "training/checkpoint.py::import_safetensors reads) merged into "
                         "the UNet")
+    return p
+
+
+def add_serving_args(p):
+    """The serving preset and the knob flags that override it."""
+    p.add_argument("--mode", type=str, default="exact", choices=sorted(SERVING_MODES),
+                   help="serving preset of the approximation knobs; a knob flag overrides "
+                        "it; exact is the reference's semantics")
+    p.add_argument("--controlnet_cache_interval", type=int, default=None)
+    p.add_argument("--unet_cache_interval", type=int, default=None)
+    p.add_argument("--controlnet_cache_steps", type=int, nargs="+", default=None)
+    p.add_argument("--unet_cache_steps", type=int, nargs="+", default=None)
+    p.add_argument("--cfg_interval", type=float, nargs=2, default=None)
+    p.add_argument("--tome", type=float, default=None)
+    return p
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="EdgeStyle end-to-end try-on (PyTorch/CUDA)")
+    p.add_argument("--subject", type=str, required=True)
+    p.add_argument("--clothes1", type=str, required=True)
+    p.add_argument("--clothes2", type=str, required=True)
+    add_model_source_args(p)
     p.add_argument("--tokenizer_dir", type=str, default=None)
     p.add_argument("--clip_model", type=str, default=None)
     p.add_argument("--random_init", action="store_true")
@@ -183,29 +208,17 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=None,
                    help="denoise steps (default 20; --mode lcm: 4)")
     p.add_argument("--guidance", type=float, default=3.5)
-    p.add_argument("--mode", type=str, default="exact", choices=sorted(SERVING_MODES),
-                   help="serving preset of the approximation knobs; a knob flag overrides "
-                        "it; exact is the reference's semantics")
-    p.add_argument("--controlnet_cache_interval", type=int, default=None)
-    p.add_argument("--unet_cache_interval", type=int, default=None)
-    p.add_argument("--controlnet_cache_steps", type=int, nargs="+", default=None)
-    p.add_argument("--unet_cache_steps", type=int, nargs="+", default=None)
-    p.add_argument("--cfg_interval", type=float, nargs=2, default=None)
-    p.add_argument("--tome", type=float, default=None)
+    add_serving_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", type=str, default="result.png")
     return p.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for the first flag
-    that asks for something this port does not carry yet."""
-    refused = [(flag, item) for flag, item in (("int8_scales", ROADMAP_KNOBS),
-                                               ("exported_dir", ROADMAP_APPS))
-               if getattr(args, flag, None)]
-    if refused:
-        flag, item = refused[0]
-        raise NotImplementedError(f"--{flag} is not ported yet ({item})")
+    """Raise NotImplementedError, naming the ROADMAP item, for a flag that
+    asks for something this port does not carry yet: ``--exported_dir``."""
+    if getattr(args, "exported_dir", None):
+        raise NotImplementedError(f"--exported_dir is not ported yet ({ROADMAP_APPS})")
 
 
 def load_image_512(path: str) -> np.ndarray:
@@ -341,6 +354,8 @@ class TryOnSystem:
             warnings.warn("--scheduler lcm (or --mode lcm) without --lcm_lora: few-step "
                           "sampling of undistilled weights gives collapsed images; pass "
                           "distilled LCM-LoRA adapters for real serving", stacklevel=2)
+        if getattr(args, "int8_scales", None):
+            self.pipe.load_int8_scales(args.int8_scales)
 
     # -------------------------------------------------------------- pose
     def detect_pose(self, img01: np.ndarray) -> Tuple[Optional[np.ndarray], np.ndarray]:
@@ -379,17 +394,40 @@ class TryOnSystem:
     # ----------------------------------------------------------- generate
     def generate(self, cond: Dict[str, np.ndarray], prompt_ids, neg_ids, steps: int = 20,
                  guidance: float = 3.5, seed: int = 0) -> np.ndarray:
-        """The six cond images (HWC in [0, 1]) -> the try-on image (H, W, 3)."""
+        """The six cond images (HWC in [0, 1]) -> the try-on image (H, W, 3):
+        :meth:`generate_batch` of the one request."""
+        return self.generate_batch([cond], prompt_ids, neg_ids, steps=steps, guidance=guidance,
+                                   seeds=(seed,))[0]
+
+    def generate_batch(self, conds: List[Dict[str, np.ndarray]], prompt_ids, neg_ids,
+                       steps: int = 20, guidance=3.5, seeds=(0,)) -> np.ndarray:
+        """B requests as one generation: ``conds`` B cond dicts
+        (:meth:`prepare_cond`), ids (B, 77), a guidance scalar or per-request
+        list, one seed per request -> (B, H, W, 3). Each row's latents are
+        its seed's generator's ``randn((1, 4, h, w))``, so each row computes
+        what that request alone would, up to the batch's reduction order on
+        the card. A single request's generator also feeds the LCM sampler's
+        re-noise; a batch's re-noise starts from seed 0, as the JAX
+        package's batched path."""
         self._check_gen_params()
-        to_norm = lambda a: _nchw(np.asarray(a)[None] * 2.0 - 1.0)  # noqa: E731
-        to01 = lambda a: _nchw(np.asarray(a)[None])  # noqa: E731
-        imgs = [to_norm(cond["agnostic"]), to01(cond["subject_pose"]),
-                to_norm(cond["clothes1"]), to01(cond["clothes1_pose"]),
-                to_norm(cond["clothes2"]), to01(cond["clothes2_pose"])]
-        out = self.pipe(self.gen_params, prompt_ids, neg_ids, imgs,
-                        generator=make_generator(seed, self.device), num_inference_steps=steps,
-                        guidance_scale=guidance, **self.knobs)
-        return _hwc(out)[0]
+        if len(seeds) != len(conds):
+            raise ValueError(f"{len(conds)} requests but {len(seeds)} seeds: one seed per "
+                             f"request reproduces its single-request latents")
+        stack = lambda k: np.stack([np.asarray(c[k]) for c in conds])  # noqa: E731
+        imgs = [_nchw(stack(k) * 2.0 - 1.0) if k in ("agnostic", "clothes1", "clothes2")
+                else _nchw(stack(k)) for k in ("agnostic", "subject_pose", "clothes1",
+                                                 "clothes1_pose", "clothes2", "clothes2_pose")]
+        ds = self.pipe.vae_downscale
+        shape = (1, self.pipe.cfg.unet.in_channels, imgs[0].shape[2] // ds,
+                 imgs[0].shape[3] // ds)
+        gens = [make_generator(s, self.device) for s in seeds]
+        lat = torch.cat([torch.randn(shape, generator=g, device=self.device,
+                                     dtype=torch.float32) for g in gens])
+        g = guidance if np.isscalar(guidance) else np.asarray(guidance, np.float32)
+        out = self.pipe(self.gen_params, prompt_ids, neg_ids, imgs, latents=lat,
+                        generator=gens[0] if len(gens) == 1 else None,
+                        num_inference_steps=steps, guidance_scale=g, **self.knobs)
+        return _hwc(out)
 
     def _check_gen_params(self) -> None:
         if self.gen_params is None:

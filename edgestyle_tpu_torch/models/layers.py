@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from edgestyle_tpu_torch.core.params import param, sub
+from edgestyle_tpu_torch.ops import quant
 from edgestyle_tpu_torch.ops.attention import multi_head_attention
 from edgestyle_tpu_torch.ops.fused_conv import norm_act_conv3x3
 from edgestyle_tpu_torch.ops.norms import group_norm, layer_norm
@@ -45,17 +46,28 @@ def norm_params(p, ch: int):
 
 
 def dense(p, x: torch.Tensor, features: int, dtype, use_bias: bool = True) -> torch.Tensor:
+    """nn.Dense counterpart. Under int8 serving (ops/quant.py) a pre-quantised
+    kernel, or a large token matmul inside the quantised scope, runs int8."""
     w = param(p, "kernel", (features, x.shape[-1]))
     b = param(p, "bias", (features,), "zeros") if use_bias else None
+    if quant.is_prequant(w):
+        if x.ndim < 3:
+            return quant.dequantized_dense(x, w, b, dtype)
+        return quant.quant_dense(x, w, b, dtype)
+    if quant.active() and quant.dense_quantizable(x, features):
+        return quant.quant_dense(x, w, b, dtype)
     return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
 
 
 def conv(p, x: torch.Tensor, features: int, kernel_size: int, dtype, stride: int = 1,
          padding=1, init: str = "lecun") -> torch.Tensor:
     """nn.Conv counterpart. ``padding``: int (symmetric) or (top, bottom,
-    left, right)."""
+    left, right). Under int8 serving a pre-quantised kernel, or a conv with
+    Cin and Cout >= 64 inside the quantised scope, runs int8."""
     w = param(p, "kernel", (features, x.shape[1], kernel_size, kernel_size), init)
     b = param(p, "bias", (features,), "zeros")
+    if quant.is_prequant(w) or (quant.active() and quant.conv_quantizable(x, features)):
+        return quant.quant_conv(x, w, b, dtype, stride, padding)
     x = x.to(dtype)
     if not isinstance(padding, int):
         top, bottom, left, right = padding
@@ -65,9 +77,14 @@ def conv(p, x: torch.Tensor, features: int, kernel_size: int, dtype, stride: int
 
 
 def pointwise(p, tokens: torch.Tensor, features: int, dtype) -> torch.Tensor:
-    """A 1x1 conv (OIHW kernel) applied to (B, N, C) tokens."""
+    """A 1x1 conv (OIHW kernel) applied to (B, N, C) tokens; int8 as
+    :func:`conv` decides it (the conv's channel gate, not the Dense's token
+    gate: JAX runs this layer as an nn.Conv on the image)."""
     w = param(p, "kernel", (features, tokens.shape[-1], 1, 1))
     b = param(p, "bias", (features,), "zeros")
+    if quant.is_prequant(w) or (
+            quant.active() and min(tokens.shape[-1], features) >= quant.MIN_QUANT_CHANNELS):
+        return quant.quant_dense(tokens, w, b, dtype)
     return F.linear(tokens.to(dtype), w.flatten(1).to(dtype), b.to(dtype))
 
 

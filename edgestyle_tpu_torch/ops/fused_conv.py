@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from edgestyle_tpu_torch import kernels
+from edgestyle_tpu_torch.ops import quant
 from edgestyle_tpu_torch.ops.norms import group_norm, group_norm_stats
 
 SMS = 132  # streaming multiprocessors of the H100 SXM
@@ -265,5 +266,14 @@ def norm_act_conv3x3(x, gamma, beta, weight, bias, *, num_groups: int = 32,
                      eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
     """GroupNorm -> SiLU -> 3x3 SAME conv through :class:`NormActConv3x3`:
     the kernels for CUDA x with a bf16 weight, the plain version otherwise
-    (:func:`takes_kernels`)."""
+    (:func:`takes_kernels`).
+
+    A pre-quantised ``weight`` (ops/quant.py::QuantKernel, W8A8 serving)
+    takes the int8 branch first, as the JAX op does: GroupNorm -> SiLU in
+    x's type, the activation quantised under the layer's key, the int8 conv
+    (pad 1) and the fp32 epilogue. So under int8 no ResNet conv reaches the
+    bf16 kernels."""
+    if quant.is_prequant(weight):
+        h = group_norm(x, gamma, beta, num_groups, eps, act=F.silu)
+        return quant.quant_conv(h, weight, bias, dtype, stride=1, padding=1)
     return NormActConv3x3.apply(x, gamma, beta, weight, bias, num_groups, eps, dtype)

@@ -16,22 +16,37 @@ approximation whose exact-semantics value runs the exact program: the
 samplers (``PipelineConfig.scheduler``: UniPC, DPM-Solver++ 2M, LCM), ToMe
 (``tome``), ``cfg_interval`` and the ControlNet-residual and UNet
 deep-feature caches (``controlnet_cache_interval`` / ``_steps``,
-``unet_cache_interval`` / ``_steps``). Not ported: int8 quantisation and
-``generate_dp`` / ``generate_tp`` (ROADMAP.md Queue 1 item 12); ``quant``
-other than None / "none" raises.
+``unet_cache_interval`` / ``_steps``). So is W8A8 int8 serving of the
+denoise step (``quant``, default ``EDGESTYLE_QUANT``; ops/quant.py):
+``"int8"`` quantises activations dynamically, ``"int8-static"`` with a
+per-layer table that :meth:`EdgeStylePipeline.calibrate_int8` records (on
+the first request when none is loaded; :meth:`save_int8_scales` /
+:meth:`load_int8_scales` keep it as JSON, in the JAX package's format and
+keys). The weights are quantised after the prompt and the control images
+are encoded, and kept on the pipeline for the next generation while they
+are the same, unwritten tensors; every model call of the step loop runs
+inside ``quantize_intercept``. Not ported: ``generate_dp`` /
+``generate_tp`` (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edgestyle_tpu_torch.core.device import DeviceLike, resolve_device, torch_dtype
-from edgestyle_tpu_torch.core.params import InitTree, materialize, sub
+from edgestyle_tpu_torch.core.device import (
+    DeviceLike,
+    make_generator,
+    resolve_device,
+    torch_dtype,
+)
+from edgestyle_tpu_torch.core.params import InitTree, flatten, materialize, sub
 from edgestyle_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from edgestyle_tpu_torch.models.multicontrolnet import EdgeStyleMultiControlNet, edgestyle_fusion
 from edgestyle_tpu_torch.models.unet import (
@@ -42,13 +57,15 @@ from edgestyle_tpu_torch.models.unet import (
     split_trunk_params,
 )
 from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from edgestyle_tpu_torch.ops.quant import quantize_denoise_params, quantize_intercept, recording
 from edgestyle_tpu_torch.ops.tome import ToMeConfig
 from edgestyle_tpu_torch.schedulers.ddpm import NoiseSchedule
 from edgestyle_tpu_torch.schedulers.dpmsolver import DPMSolverScheduler
 from edgestyle_tpu_torch.schedulers.lcm import LCMScheduler
 from edgestyle_tpu_torch.schedulers.unipc import UniPCScheduler
 
-ROADMAP_ITEM_12 = "ROADMAP.md Queue 1 item 12"
+ROADMAP_ITEM_16 = "ROADMAP.md Queue 1 item 16"
+QUANT_MODES = ("none", "int8", "int8-static")
 SCHEDULERS = {"unipc": UniPCScheduler, "dpm++": DPMSolverScheduler,
               "dpmsolver++": DPMSolverScheduler, "lcm": LCMScheduler}
 
@@ -76,17 +93,31 @@ class PipelineConfig:
         return tuple(p for p, pid in enumerate(self.pattern) if pid is not None)
 
 
+def _version(leaf) -> Optional[int]:
+    """A tensor's in-place write counter; None for a leaf without one (an
+    inference-mode tensor, a non-tensor)."""
+    try:
+        return leaf._version
+    except (AttributeError, RuntimeError):
+        return None
+
+
 class EdgeStylePipeline:
     """params: {'vae', 'clip', 'unet', 'controlnet': {'static', 'lora_0',
     'lora_1', 'fusion'}}, in the port's layout (core/porting.py).
 
     ``tome``: a merge ratio (0 is exact) or an ops/tome.py::ToMeConfig, for
-    the transformer blocks of the UNet and the ControlNet trunks."""
+    the transformer blocks of the UNet and the ControlNet trunks. ``quant``:
+    "none", "int8" or "int8-static" (W8A8 serving of the denoise step), by
+    default the ``EDGESTYLE_QUANT`` environment variable's, else "none"."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(), device: DeviceLike = "cuda",
                  quant: Optional[str] = None, tome=None):
-        if quant not in (None, "none"):
-            raise NotImplementedError(f"quant={quant!r} is not ported yet ({ROADMAP_ITEM_12})")
+        self.quant = quant if quant is not None else os.environ.get("EDGESTYLE_QUANT", "none")
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {self.quant!r} (expected one of {QUANT_MODES})")
+        self._int8_scales: Optional[Dict[str, float]] = None  # the int8-static table
+        self._int8_weights = None  # (leaves, their versions, the quantised trees)
         if isinstance(tome, (int, float)) and not isinstance(tome, bool):
             tome = ToMeConfig(ratio=float(tome)) if float(tome) > 0 else None
         if tome is not None and not isinstance(tome, ToMeConfig):
@@ -264,13 +295,21 @@ class EdgeStylePipeline:
         """``cfg_on``: None (CFG every step, the exact program), "off" (no
         step) or a (steps,) host bool mask; ``cn_sched`` / ``deep_sched``:
         None (no cache) or (steps,) host bool refresh masks, True at step 0
-        (:meth:`_schedules`)."""
+        (:meth:`_schedules`). Under int8 the denoise weights are quantised
+        here (:meth:`_quantized`: once for a set of weights), after the
+        prompt and control images are encoded, and each step's model calls
+        run in ``quantize_intercept`` (with the static table under
+        "int8-static")."""
         cfg = self.cfg
         dev = self.device
         b = prompt_ids.shape[0]
+        int8 = self.quant.startswith("int8")
+        static = self._quant_scales_static() if self.quant == "int8-static" else None
         context = self.encode_prompt(params, prompt_ids, negative_prompt_ids)
         embs = self.embed_cond_images(params, cond_images)
         embs2 = [torch.cat([e, e], dim=0) for e in embs]
+        if int8:
+            params = self._quantized(params)
         if latents is None:
             h = cond_images[0].shape[2] // self.vae_downscale
             w = cond_images[0].shape[3] // self.vae_downscale
@@ -296,16 +335,18 @@ class EdgeStylePipeline:
 
         if cn_sched is None and deep_sched is None:
             def model_fn(sample, t, i):
-                return self._eval_step(use_cfg(i), params, context, embs, embs2, scales[i], g,
-                                       b, guess_mode, sample, t)
+                with quantize_intercept(int8, static_scales=static):
+                    return self._eval_step(use_cfg(i), params, context, embs, embs2, scales[i],
+                                           g, b, guess_mode, sample, t)
 
             final = self.scheduler.sample_loop(plan, model_fn, latents)
         else:
             def model_fn(sample, t, i, cache):
-                out = self._eval_step(
-                    use_cfg(i), params, context, embs, embs2, scales[i], g, b, guess_mode,
-                    sample, t, cache, refresh_cn=cn_sched is None or bool(cn_sched[i]),
-                    refresh_deep=deep_sched is None or bool(deep_sched[i]))
+                with quantize_intercept(int8, static_scales=static):
+                    out = self._eval_step(
+                        use_cfg(i), params, context, embs, embs2, scales[i], g, b, guess_mode,
+                        sample, t, cache, refresh_cn=cn_sched is None or bool(cn_sched[i]),
+                        refresh_deep=deep_sched is None or bool(deep_sched[i]))
                 return out, cache
 
             # step 0 always refreshes, so the caches start empty
@@ -359,6 +400,9 @@ class EdgeStylePipeline:
         if g.ndim not in (0, 1) or (g.ndim == 1 and g.shape[0] != prompt_ids.shape[0]):
             raise ValueError(f"guidance_scale must be a scalar or (B,), got {g.shape} "
                              f"for B={prompt_ids.shape[0]}")
+        if self.quant == "int8-static" and self._int8_scales is None:
+            # lazy calibration on the first request's own inputs
+            self.calibrate_int8(params, prompt_ids, negative_prompt_ids, cond_images)
         return self._generate(params, prompt_ids, negative_prompt_ids, cond_images, generator,
                               num_inference_steps, g, scales, latents, guess_mode,
                               cfg_on=cfg_on, cn_sched=cn_sched, deep_sched=deep_sched)
@@ -419,11 +463,100 @@ class EdgeStylePipeline:
 
     def generate_dp(self, *args, **kwargs):
         raise NotImplementedError(f"generate_dp (several cards) is not ported yet "
-                                  f"({ROADMAP_ITEM_12})")
+                                  f"({ROADMAP_ITEM_16})")
 
     def generate_tp(self, *args, **kwargs):
         raise NotImplementedError(f"generate_tp (several cards) is not ported yet "
-                                  f"({ROADMAP_ITEM_12})")
+                                  f"({ROADMAP_ITEM_16})")
+
+    # ------------------------------------------------------------ int8
+    @torch.no_grad()
+    def calibrate_int8(self, params, prompt_ids, negative_prompt_ids,
+                       cond_images: Sequence[torch.Tensor],
+                       generator: Optional[torch.Generator] = None, margin: float = 1.25,
+                       timesteps: Sequence[int] = (999, 749, 499, 249, 1)) -> Dict[str, float]:
+        """Record the per-layer activation scales of "int8-static".
+
+        Runs the denoise model (ControlNets + UNet with CFG, the scope that
+        int8 quantises) once at each of ``timesteps`` on unit-normal latents
+        drawn from ``generator`` (seed 0 on this pipeline's device by
+        default) with the given conditioning, collecting each keyed layer's
+        dynamic absmax scale (ops/quant.py::recording, device scalars read
+        once per timestep). The max over the timesteps times ``margin`` is
+        the table, keyed like the JAX package's; beyond it the static
+        quantiser clips. The latents follow the control images' size (JAX
+        takes ``cfg.vae.sample_size``, the same size wherever both run)."""
+        dev = self.device
+        cfg = self.cfg
+        prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
+        negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
+        cond_images = [torch.as_tensor(im).to(dev, torch.float32)
+                       .contiguous(memory_format=torch.channels_last) for im in cond_images]
+        b = prompt_ids.shape[0]
+        h = cond_images[0].shape[2] // self.vae_downscale
+        w = cond_images[0].shape[3] // self.vae_downscale
+        context = self.encode_prompt(params, prompt_ids, negative_prompt_ids)
+        embs = self.embed_cond_images(params, cond_images)
+        embs2 = [torch.cat([e, e], dim=0) for e in embs]
+        qp = self._quantized(params)
+        scales = np.ones((cfg.num_branches,), np.float32)
+        g = torch.ones((), dtype=torch.float32, device=dev)
+        if generator is None:
+            generator = make_generator(0, dev)
+        table: Dict[str, float] = {}
+        for t in timesteps:
+            lat = torch.randn((b, cfg.unet.in_channels, h, w), generator=generator, device=dev,
+                              dtype=torch.float32).contiguous(memory_format=torch.channels_last)
+            rec: Dict[str, torch.Tensor] = {}
+            with recording(rec), quantize_intercept(True):
+                self._eval_step(True, qp, context, embs, embs2, scales, g, b, False, lat,
+                                int(t))
+            keys = list(rec)
+            for k, v in zip(keys, torch.stack([rec[k] for k in keys]).tolist()):
+                table[k] = max(table.get(k, 0.0), v)
+        self._int8_scales = {k: v * margin for k, v in table.items()}
+        return self._int8_scales
+
+    def _quantized(self, params):
+        """:func:`quantize_denoise_params` of ``params``, whose int8 UNet and
+        ControlNet trees are kept for the next call while those leaves are
+        the same tensors at the same version counters (a server's weights):
+        a leaf swapped or written in place quantises them again."""
+        leaves = list(flatten({"u": params["unet"], "c": params["controlnet"]}).values())
+        versions = [_version(t) for t in leaves]
+        held = self._int8_weights
+        if (held is None or None in versions or held[1] != versions
+                or any(a is not b for a, b in zip(held[0], leaves))):
+            qp = quantize_denoise_params(params)
+            held = (leaves, versions, {"unet": qp["unet"], "controlnet": qp["controlnet"]})
+            self._int8_weights = held if None not in versions else None
+        return {**params, **held[2]}
+
+    def save_int8_scales(self, path: str) -> None:
+        """Write the int8-static table as JSON (the JAX package's format), so
+        a serving process skips the first-request calibration."""
+        if self._int8_scales is None:
+            raise RuntimeError("no calibration table to save: run calibrate_int8 (or one "
+                               "int8-static generation) first")
+        with open(path, "w") as f:
+            json.dump(self._int8_scales, f, indent=0, sort_keys=True)
+
+    def load_int8_scales(self, path: str) -> None:
+        """Read a table that :meth:`save_int8_scales` (either package's)
+        wrote."""
+        with open(path) as f:
+            table = json.load(f)
+        if not table or not all(isinstance(k, str) and isinstance(v, (int, float)) and v > 0
+                                for k, v in table.items()):
+            raise ValueError(f"{path} is not an int8 scale table")
+        self._int8_scales = {k: float(v) for k, v in table.items()}
+
+    def _quant_scales_static(self) -> Dict[str, float]:
+        if self._int8_scales is None:
+            raise RuntimeError("int8-static needs a calibration table: call calibrate_int8 or "
+                               "load_int8_scales first (__call__ calibrates on the first "
+                               "request)")
+        return self._int8_scales
 
     def _step_scales(self, num_steps: int, conditioning_scale, start, end) -> np.ndarray:
         """(num_steps, num_branches) host float32: the reference's keep mask

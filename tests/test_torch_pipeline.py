@@ -126,18 +126,20 @@ def test_pipeline_init_and_generate_on_cpu():
 
 
 def test_pipeline_rejects_unported_knobs():
-    """int8 and the multi-card generators are not ported (they name their
-    ROADMAP item); the cache and cfg_interval knobs are, and raise the JAX
-    pipeline's ValueErrors on bad values before reading any input."""
+    """The multi-card generators are not ported (they name their ROADMAP
+    item, 16); the cache and cfg_interval knobs are, and raise the JAX
+    pipeline's ValueErrors on bad values before reading any input; int8 is
+    ported (tests/test_torch_quant.py), and an unknown quant mode raises
+    ValueError as in JAX (tests/test_quant.py)."""
     pipe = EdgeStylePipeline(TINY_PIPE, device="cpu")
     with pytest.raises(ValueError, match="controlnet_cache_interval"):
         pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], controlnet_cache_interval=0)
     with pytest.raises(ValueError, match="cfg_interval"):
         pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], cfg_interval=(0.4, 0.0))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int8")
+    with pytest.raises(ValueError, match="quant mode"):
+        EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int4")
     for name in ("generate_dp", "generate_tp"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 16"):
             getattr(pipe, name)(None, {}, None, None, [])
 
 

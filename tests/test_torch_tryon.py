@@ -162,10 +162,13 @@ REQUIRED = ["--subject", "s.png", "--clothes1", "a.png", "--clothes2", "b.png", 
 
 
 @pytest.mark.parametrize("flags,item", [
+    # --int8_scales is ported (the case keeps the id it had when the flag was
+    # refused): beside it, --exported_dir is the flag refused
+    pytest.param(["--int8_scales", "s.json", "--exported_dir", "art"], "item 15",
+                 id="flags0-item 12"),
     # --clip_model is ported (prompt mining): beside it, --exported_dir is
     # the flag refused
-    (["--int8_scales", "s.json"], "item 12"), (["--clip_model", "clip", "--exported_dir", "art"],
-                                               "item 15"),
+    (["--clip_model", "clip", "--exported_dir", "art"], "item 15"),
     (["--exported_dir", "art"], "item 15"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
@@ -177,7 +180,7 @@ def test_unported_flags_raise_naming_their_item(flags, item):
     ["--mode", "turbo"], ["--controlnet_cache_interval", "2"], ["--unet_cache_interval", "3"],
     ["--controlnet_cache_steps", "0", "4"], ["--unet_cache_steps", "0", "2"],
     ["--cfg_interval", "0", "0.5"], ["--tome", "0.5"], ["--scheduler", "dpm++"],
-    ["--scheduler", "lcm"], ["--lcm_lora", "a.safetensors"],
+    ["--scheduler", "lcm"], ["--lcm_lora", "a.safetensors"], ["--int8_scales", "s.json"],
 ])
 def test_serving_flags_are_ported(flags):
     """The serving knobs, their presets, both samplers and the LCM-LoRA
