@@ -171,7 +171,39 @@ Phases, each of which ends the run with a non-zero exit on failure:
      generation's 440 / 2,128 / 2,128 launches) and a ``--guidance_sweep
      --steps 4`` grid of (1536, 1536, 3), the three sources and six
      generations (528 / 2,784 / 2,784), each generation finite in [0, 1]; an
-     ``{"infer": ...}`` line.
+     ``{"infer": ...}`` line;
+  16. segmenter (``segmenter_phase``): a seeded parsing folder (9 non-square
+     JPEG photos, PNG labels with blocks of every label the four heads
+     keep) and ``apps/train_segmenter.py::main --random_init --head clothes
+     --epochs 2 --batch_size 4 --max_steps 4`` at EfficientViT-L2-SAM, 512
+     px, fp32 (TF32 off): its JSON lines, finite losses, the decoder moved
+     (all but the IoU head and the three unused tokens' hypernetworks), the
+     image and prompt encoders bit-unchanged; the exported decoder through
+     the try-on's ``--sam_clothes`` (with the base SAM and a pose net written
+     as upstream state dicts) bit-equal, and ``TryOnSystem.extract`` with it;
+     the steady s/step of the library step at micro-batch 4, its device
+     launches and peak memory; one step of each head card against CPU (loss
+     within SEG_LOSS_TOL, each decoder gradient leaf within SEG_GRAD_TOL
+     relative L2), a gradient leaf scaled by 1.1 rejected; no hand-written
+     kernel launched; a ``{"segmenter": ...}`` line;
+  17. auto_mask (``auto_mask_phase``): seeded SAM-L2 weights, one 512 px
+     photo, ``automatic_mask_candidates`` at its defaults (16 x 16 points,
+     chunks of 64: 768 candidates) on the card and the CPU: predicted IoU and
+     stability within AUTO_SCORE_TOL, at most AUTO_MASK_SHARE_TOL of the
+     mask pixels differing, ``select_auto_masks`` on both; ms per image,
+     device launches, no hand-written kernel; an ``{"auto_mask": ...}``
+     line;
+  18. extract (``extract_phase``): six 1280 x 720 frames (one blank) and
+     ``apps/extract_dataset.py::main --random_init --every_n 1 --top_k 2
+     --score_threshold 0`` with CLIP-IQA on phase 9's ViT-L/14 CLIPModel
+     file: its stats account for every frame (random weights find no
+     person); then ``extract_subject`` with the same system, its pose net
+     run but its keypoints replaced by a known person's, so every frame
+     reaches SAM, the IQA and the disk (the score gate opened: random
+     weights' predicted IoU means nothing): the top 2 of 6 frames written
+     with all eight artifacts, ``find_missing_artifacts`` empty, ``curation.main
+     bad`` at full width on the result; seconds per frame split into pose,
+     SAM and IQA; no hand-written kernel; an ``{"extract": ...}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -180,12 +212,15 @@ line before it is the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2622,13 +2657,40 @@ def _logit_margin(logits) -> float:
     return float(torch.minimum(top[:, 0] - top[:, 1], top[:, 1] - top[:, 2]).min())
 
 
-def mined_tryon_phase(dev, card: str):
-    """The try-on CLI with prompt mining at full width: a seeded ViT-L/14
-    CLIPModel file and the byte tokenizer's files, ``apps/tryon.py::main``
-    with ``--random_init --tokenizer_dir --clip_model`` on three photos, the
-    mined prompt's form, the miner's time per image and its vision forward's
-    share, and the card's image embedding against the CPU's. Returns the
-    kernels' launches of the CLI run."""
+def write_clip_files(root: str, dev) -> dict:
+    """A seeded full-width CLIPModel file (``root/clip``) and the byte
+    tokenizer's files (``root/tokenizer``), which the mined_tryon and
+    extract phases read: {clip_dir, tok_dir, params, file_bytes, write_s}."""
+    from edgestyle_tpu_torch.core.safetensors import save_file
+    from edgestyle_tpu_torch.data.tokenizer import make_byte_tokenizer
+
+    manifest = clip_model_manifest()
+    out = {"clip_dir": os.path.join(root, "clip"), "tok_dir": os.path.join(root, "tokenizer")}
+    out["params"] = sum(math.prod(s) for k, s in manifest.items()
+                        if not k.endswith("position_ids"))
+    if out["params"] != CLIP_MODEL_PARAMS:
+        fail(f"mined_tryon: the CLIPModel manifest has {out['params']:,} parameters, not "
+             f"{CLIP_MODEL_PARAMS:,}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    os.makedirs(out["clip_dir"])
+    sd = synth_on_card(manifest, gen, torch.float32)
+    t0 = time.perf_counter()
+    out["file_bytes"] = save_file(sd, os.path.join(out["clip_dir"], "model.safetensors"))
+    out["write_s"] = time.perf_counter() - t0
+    del sd
+    make_byte_tokenizer().save_pretrained(out["tok_dir"])
+    return out
+
+
+def mined_tryon_phase(dev, card: str, clip_files: dict):
+    """The try-on CLI with prompt mining at full width: ``clip_files``'
+    seeded ViT-L/14 CLIPModel file and byte tokenizer
+    (:func:`write_clip_files`), ``apps/tryon.py::main`` with ``--random_init
+    --tokenizer_dir --clip_model`` on three photos, the mined prompt's form,
+    the miner's time per image and its vision forward's share, and the
+    card's image embedding against the CPU's. Returns the kernels' launches
+    of the CLI run."""
     import tempfile
 
     import numpy as np
@@ -2637,7 +2699,6 @@ def mined_tryon_phase(dev, card: str):
     from edgestyle_tpu_torch import kernels
     from edgestyle_tpu_torch.apps import tryon
     from edgestyle_tpu_torch.core.pretrained import load_clip_model_params
-    from edgestyle_tpu_torch.core.safetensors import save_file
     from edgestyle_tpu_torch.data.prompts import (
         CLOTHING_ITEMS,
         COLORS,
@@ -2645,27 +2706,11 @@ def mined_tryon_phase(dev, card: str):
         build_prompt_miner,
         top2,
     )
-    from edgestyle_tpu_torch.data.tokenizer import make_byte_tokenizer
     from edgestyle_tpu_torch.models.clip_vision import CLIPVisionModelWithProjection
 
-    rec = {"card": card}
-    manifest = clip_model_manifest()
-    rec["params"] = sum(math.prod(s) for k, s in manifest.items()
-                        if not k.endswith("position_ids"))
-    if rec["params"] != CLIP_MODEL_PARAMS:
-        fail(f"mined_tryon: the CLIPModel manifest has {rec['params']:,} parameters, not "
-             f"{CLIP_MODEL_PARAMS:,}")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(77)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as root:
-        clip_dir, tok_dir = os.path.join(root, "clip"), os.path.join(root, "tokenizer")
-        os.makedirs(clip_dir)
-        sd = synth_on_card(manifest, gen, torch.float32)
-        t0 = time.perf_counter()
-        rec["file_bytes"] = save_file(sd, os.path.join(clip_dir, "model.safetensors"))
-        rec["write_s"] = time.perf_counter() - t0
-        del sd
-        make_byte_tokenizer().save_pretrained(tok_dir)
+    rec = {"card": card, **{k: clip_files[k] for k in ("params", "file_bytes", "write_s")}}
+    clip_dir, tok_dir = clip_files["clip_dir"], clip_files["tok_dir"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mined_") as root:
         photos = []
         for i, ph in enumerate(make_photos(3, 3, 512)):
             photos.append(os.path.join(root, f"photo{i}.png"))
@@ -3615,6 +3660,458 @@ def _family(key: str) -> str:
     return "PyTorch elementwise, reductions and copies"
 
 
+# ------------------------------------- segmenter, automatic masks, extraction
+SEG_PHOTOS = 9  # the 99/1 split keeps 8: two batches of 4 an epoch
+SEG_ARGV = ["--random_init", "--head", "clothes", "--epochs", "2", "--batch_size", "4",
+            "--max_steps", "4"]
+SEG_HEADS = ("subject", "head", "clothes", "body")
+SEG_TIMED = 3
+# One segmenter step, card (TF32 off) against the CPU, same weights, batch
+# and box noise: the loss within SEG_LOSS_TOL relative, each decoder
+# gradient leaf within SEG_GRAD_TOL relative L2. Both are fp32 through the
+# ~100 layers of the SAM-L2 encoder, whose embedding the tryon_system phase
+# reads 5.3e-6 apart. The key-projection biases' exact gradient is 0 (a
+# softmax over the keys ignores a constant added to a row), and the IoU head
+# and the three unused mask tokens' hypernetworks get none: those leaves
+# are held to the whole decoder gradient's norm. A leaf scaled by
+# SEG_FAULT (10% off) must be rejected.
+SEG_LOSS_TOL = 1e-4
+SEG_GRAD_TOL = 1e-3
+SEG_FAULT = 1.1
+# automatic_mask_candidates at its defaults (16 x 16 points, chunks of 64),
+# card against the CPU: predicted IoU and stability within AUTO_SCORE_TOL
+# (stability moves by 1 / the loose mask's area for each pixel whose logit
+# crosses +-1), at most AUTO_MASK_SHARE_TOL of the mask pixels differ.
+AUTO_SCORE_TOL = 1e-3
+AUTO_MASK_SHARE_TOL = 1e-3
+AUTO_TIMED = 3
+EXTRACT_FRAMES = 6  # at 1280 x 720; frame 2 blank
+EXTRACT_TOP_K = 2
+
+
+def phase_out_dir(name: str) -> str:
+    """A phase's files inside the checkout (git-ignored), emptied first."""
+    d = os.path.join(HERE, "build", "torch_ext", f"chip_smoke_{name}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def write_parsing_folder(root: str, n: int, seed: int) -> None:
+    """n non-square photos (images/*.jpg, 600 x 450) and their parsing
+    labels (masks/*.png, uint8) with blocks of every label that one of the
+    four heads keeps: hair 2, face 11, upper clothes 4, pants 6, legs 12/13,
+    arms 14/15, shoes 9/10, placed per photo from ``seed``."""
+    import numpy as np
+    from PIL import Image
+
+    g = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "masks"))
+    h, w = 600, 450
+    for i, photo in enumerate(make_photos(seed, n, w)):
+        img = np.concatenate([photo, photo[: h - w]], axis=0)
+        lab = np.zeros((h, w), np.uint8)
+        cx, top = int(g.integers(180, 270)), int(g.integers(30, 70))
+        for label, (y0, y1, x0, x1) in {
+                2: (top, top + 40, cx - 45, cx + 45), 11: (top + 40, top + 100, cx - 35, cx + 35),
+                4: (top + 100, top + 260, cx - 80, cx + 80),
+                14: (top + 110, top + 280, cx - 120, cx - 80),
+                15: (top + 110, top + 280, cx + 80, cx + 120),
+                6: (top + 260, top + 420, cx - 70, cx + 70),
+                12: (top + 420, top + 480, cx - 60, cx - 5),
+                13: (top + 420, top + 480, cx + 5, cx + 60),
+                9: (top + 480, top + 510, cx - 65, cx - 5),
+                10: (top + 480, top + 510, cx + 5, cx + 65)}.items():
+            lab[max(y0, 0):min(y1, h), max(x0, 0):min(x1, w)] = label
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(root, "images", f"p{i}.jpg"), quality=95)
+        Image.fromarray(lab).save(os.path.join(root, "masks", f"p{i}.png"))
+
+
+def _seg_grad_errs(got: dict, want: dict) -> dict:
+    """{leaf: |got - want|_2 / |want|_2} over flat gradient trees; a leaf
+    whose exact gradient is 0 (a key-projection bias, or no gradient at
+    all) is scaled by the whole tree's norm instead."""
+    total = math.sqrt(sum(float(v.double().square().sum()) for v in want.values()))
+    errs = {}
+    for k, w in want.items():
+        d = float((got[k].double().cpu() - w.double().cpu()).norm())
+        n = float(w.double().norm())
+        errs[".".join(k)] = d / (total if k[-2:] == ("k_proj", "bias") or n == 0 else n)
+    return errs
+
+
+def segmenter_phase(dev, card: str):
+    """The segmenter finetuner at full width (module docstring, phase 16).
+    Returns the kernels' launches of the entry point's run."""
+    import numpy as np
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import extract_dataset, train_segmenter, tryon
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.core.safetensors import save_file
+    from edgestyle_tpu_torch.models.efficientvit.sam import (
+        SAM_L2,
+        EfficientViTSam,
+        _sam_rules,
+        preprocess_sam_image,
+    )
+    from edgestyle_tpu_torch.models.openpose import BodyPoseNet, _bodypose_rules
+    from edgestyle_tpu_torch.training import segmenter as seg
+
+    rec = {"card": card}
+    root = phase_out_dir("segmenter")
+    data, out = os.path.join(root, "parsing"), os.path.join(root, "out")
+    write_parsing_folder(data, SEG_PHOTOS, 15)
+
+    # 1. the entry point: --random_init, head clothes, 2 epochs of 2 steps;
+    # the peak is read above what earlier phases left allocated
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, frozen), text = _captured(lambda: train_segmenter.main(
+        SEG_ARGV + ["--dataset_dir", data, "--output_dir", out], device=dev))
+    torch.cuda.synchronize()
+    rec["main_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["peak_memory_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    rec["losses"] = [ln["train_loss"] for ln in lines if "train_loss" in ln]
+    bad = []
+    if not (len(lines) == 4 and lines[0] == {"train": SEG_PHOTOS - 1, "val": 1, "head": "clothes"}
+            and lines[-1].get("done") is True and lines[-1]["steps"] == 4):
+        bad.append(f"JSON lines {lines}")
+    if len(rec["losses"]) != 2 or not all(math.isfinite(v) for v in rec["losses"]):
+        bad.append(f"epoch losses {rec['losses']}")
+    fresh = EfficientViTSam(SAM_L2).init_params(make_generator(0, dev))
+    for part in ("image_encoder", "prompt_encoder"):
+        if not _trees_equal(frozen[part], fresh[part]):
+            bad.append(f"the {part} moved")
+    init = flatten(fresh["mask_decoder"])
+    still = {k[0] for k, v in flatten(state["decoder"]).items() if torch.equal(v, init[k])}
+    rec["decoder_groups_unmoved"] = sorted(still)
+    if still != {"iou_mlp", "hyper_mlps_1", "hyper_mlps_2", "hyper_mlps_3"}:
+        bad.append(f"decoder groups left where they were: {sorted(still)} (only the IoU head "
+                   f"and the unused tokens' hypernetworks get no gradient)")
+
+    # 2. the exported decoder through the try-on's --sam_clothes
+    sam_file = os.path.join(root, "sam_l2.safetensors")
+    pose_file = os.path.join(root, "pose.safetensors")
+    save_file(upstream_state_dict(frozen, _sam_rules(SAM_L2), _sam_rename), sam_file)
+    save_file(upstream_state_dict(BodyPoseNet().init_params(make_generator(1, dev)),
+                                  _bodypose_rules(), _pose_rename), pose_file)
+    trained_file = os.path.join(out, "trained_decoder_clothes.safetensors")
+    args = extract_dataset.parse_args(["--input", data, "--output_dir", root, "--sam_checkpoint",
+                                       sam_file, "--bodypose_checkpoint", pose_file,
+                                       "--sam_clothes", trained_file])
+    system = tryon.TryOnSystem(random_init=False, args=args, device=dev)
+    if not _trees_equal(system.sam_params["decoders"]["clothes"], state["decoder"]):
+        bad.append("the exported decoder does not load through --sam_clothes bit for bit")
+    if not _trees_equal(system.sam_params["sam"], frozen):
+        bad.append("the base SAM does not read back bit for bit")
+    photo = make_photos(5, 1, 512)[0]
+    ex = system.extract(photo, person_keypoints() * (512 / 46))
+    if not all(ex[k].shape == (512, 512, 3) and np.isfinite(ex[k]).all()
+               and 0 <= ex[k].min() and ex[k].max() <= 1
+               for k in ("subject", "agnostic", "head", "clothes")):
+        bad.append("TryOnSystem.extract with the trained head gave no finite [0, 1] composites")
+    rec["extract_subject_score"] = float(ex["subject_score"])
+    del system
+
+    # 3. the library step: steady s/step and device launches at micro-batch 4
+    images01, labels = train_segmenter.load_parsing_folder(data, SAM_L2.image_size)
+
+    def batch_of(sel, d):
+        return {"image": preprocess_sam_image(torch.from_numpy(images01[sel]).permute(0, 3, 1, 2)
+                                              .to(d)),
+                "labels": torch.from_numpy(labels[sel]).to(d)}
+
+    sam = EfficientViTSam(SAM_L2)
+    tcfg = seg.SegmenterTrainConfig(head="clothes")
+    step = seg.make_segmenter_train_step(sam, tcfg)
+    st = seg.init_segmenter_state(frozen, tcfg)
+    gen = make_generator(3, dev)
+    b4 = batch_of(slice(1, 5), dev)
+    st, m = step(st, frozen, b4, seg.draw_box_noise(gen, 4, tcfg.box_jitter))  # warm-up
+    times = []
+    for _ in range(SEG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, frozen, b4, seg.draw_box_noise(gen, 4, tcfg.box_jitter))
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    rec["steady_s_per_step"] = statistics.median(times)
+    rows, rec["step_profiled_wall_s"], busy = profiled(
+        lambda: step(st, frozen, b4, seg.draw_box_noise(gen, 4, tcfg.box_jitter)), root,
+        "profile_segmenter_step.txt")
+    rec["step_device_launches"] = sum(r[1] for r in rows)
+    rec["step_device_ms"] = busy * 1e3
+    del st, b4
+
+    # 4. one step of each head, card against CPU; a planted fault
+    cpu = torch.device("cpu")
+    frozen_cpu = _to(frozen, cpu)
+    noise = torch.tensor([[3, -7, 12, -2], [-15, 4, 0, 9]])
+    rec["card_vs_cpu"] = {}
+    fault_errs = None
+    for head in SEG_HEADS:
+        cfg = seg.SegmenterTrainConfig(head=head)
+        lc, gc = seg.segmenter_grads(sam, cfg, frozen["mask_decoder"], frozen,
+                                     batch_of(slice(1, 3), dev), noise.to(dev))
+        lp, gp = seg.segmenter_grads(sam, cfg, frozen_cpu["mask_decoder"], frozen_cpu,
+                                     batch_of(slice(1, 3), cpu), noise)
+        gc, gp = flatten(gc), flatten(gp)
+        errs = _seg_grad_errs(gc, gp)
+        rec["card_vs_cpu"][head] = {"loss": float(lp), "loss_rel_err":
+                                    abs(float(lc) - float(lp)) / abs(float(lp)),
+                                    "grad_max_rel_l2": max(errs.values())}
+        if head == "clothes":
+            planted = dict(gc)
+            key = ("hyper_mlps_0", "layers_2", "kernel")
+            planted[key] = planted[key] * SEG_FAULT
+            fault_errs = _seg_grad_errs(planted, gp)
+    rec["planted_fault_max_rel_l2"] = max(fault_errs.values())
+    torch.cuda.empty_cache()
+
+    worst = max(v["grad_max_rel_l2"] for v in rec["card_vs_cpu"].values())
+    worst_loss = max(v["loss_rel_err"] for v in rec["card_vs_cpu"].values())
+    print(f"segmenter ({card}): train_segmenter.main --random_init --head clothes at SAM-L2 "
+          f"{SAM_L2.image_size} px fp32, micro-batch 4, 4 steps in {rec['main_s']:.2f} s "
+          f"(epoch losses {rec['losses']}), peak device memory {rec['peak_memory_gib']:.2f} GiB "
+          f"above the phase's start, "
+          f"kernel launches {rec['launches']}; steady {rec['steady_s_per_step']:.4f} s/step "
+          f"(median of {SEG_TIMED}), one step {rec['step_device_launches']} device launches, "
+          f"{rec['step_device_ms']:.3f} ms device time in {rec['step_profiled_wall_s']:.3f} s "
+          f"(profiler on); card vs CPU over the four heads: loss {worst_loss:.2e} relative (tol "
+          f"{SEG_LOSS_TOL}), worst leaf {worst:.2e} relative L2 (tol {SEG_GRAD_TOL}); planted "
+          f"fault x{SEG_FAULT}: {rec['planted_fault_max_rel_l2']:.2e}; unmoved decoder groups "
+          f"{rec['decoder_groups_unmoved']}", flush=True)
+    print(f"  one step by kernel family:", flush=True)
+    _print_families(rows, busy)
+    print(json.dumps({"segmenter": rec}), flush=True)
+    if any(rec["launches"].values()):
+        bad.append(f"the segmenter launched hand-written kernels {rec['launches']}; its path "
+                   f"has none")
+    if worst_loss > SEG_LOSS_TOL or worst > SEG_GRAD_TOL:
+        bad.append("the step on the card disagrees with the CPU")
+    if not rec["planted_fault_max_rel_l2"] > SEG_GRAD_TOL:
+        bad.append("the card-vs-CPU gradient check did not reject a leaf scaled by 1.1")
+    if bad:
+        fail("segmenter: " + "; ".join(bad))
+    return rec["launches"]
+
+
+def auto_mask_phase(dev, card: str):
+    """SAM's automatic mask candidates at full width (module docstring,
+    phase 17). Returns the kernels' launches of the card run."""
+    import numpy as np
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.models.efficientvit.sam import (
+        SAM_L2,
+        EfficientViTSam,
+        automatic_mask_candidates,
+        preprocess_sam_image,
+        select_auto_masks,
+    )
+
+    rec = {"card": card}
+    sam = EfficientViTSam(SAM_L2)
+    params = sam.init_params(make_generator(21, dev))
+    photo = torch.from_numpy(make_photos(9, 1, SAM_L2.image_size)[0]).permute(2, 0, 1)[None]
+    img = preprocess_sam_image(photo.to(dev))
+    kernels.reset_launches()
+    run = lambda: automatic_mask_candidates(sam, params, img)  # noqa: E731
+    run()
+    times = []
+    for _ in range(AUTO_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_out = [t.cpu() for t in run()]
+        times.append(time.perf_counter() - t0)
+    rec["ms_per_image"] = 1e3 * statistics.median(times)
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rows, rec["profiled_wall_s"], busy = profiled(run, phase_out_dir("auto_mask"),
+                                                  "profile_auto_mask.txt")
+    rec["device_launches"] = sum(r[1] for r in rows)
+    rec["device_ms"] = busy * 1e3
+    t0 = time.perf_counter()
+    cpu_out = automatic_mask_candidates(sam, _to(params, torch.device("cpu")), img.cpu())
+    rec["cpu_s"] = time.perf_counter() - t0
+    (m, iou, stab), (mc, iouc, stabc) = card_out, cpu_out
+    rec["candidates"] = int(m.shape[0])
+    rec["iou_max_abs_err"] = float((iou - iouc).abs().max())
+    rec["stability_max_abs_err"] = float((stab - stabc).abs().max())
+    rec["mask_pixel_diff_share"] = float((m != mc).float().mean())
+    rec["mask_share"] = float(mc.float().mean())
+    t0 = time.perf_counter()
+    kept = {}
+    for name, (thr_i, thr_s) in {"defaults": (0.88, 0.95),
+                                 "medians": (float(iouc.median()), float(stabc.median()))}.items():
+        a = select_auto_masks(m, iou, stab, pred_iou_thresh=thr_i, stability_thresh=thr_s)
+        b = select_auto_masks(mc, iouc, stabc, pred_iou_thresh=thr_i, stability_thresh=thr_s)
+        kept[name] = {"card": len(a), "cpu": len(b)}
+    rec["select_s"] = (time.perf_counter() - t0) / 4
+    rec["kept"] = kept
+    print(f"auto_mask ({card}): automatic_mask_candidates at SAM-L2 {SAM_L2.image_size} px "
+          f"(16 x 16 points, chunks of 64, {rec['candidates']} candidates) "
+          f"{rec['ms_per_image']:.2f} ms per image with the masks to the host (median of "
+          f"{AUTO_TIMED}), {rec['device_launches']} device launches, {rec['device_ms']:.3f} ms "
+          f"device time in {rec['profiled_wall_s']:.3f} s (profiler on), kernel launches "
+          f"{rec['launches']}; CPU {rec['cpu_s']:.2f} s; card vs CPU: iou "
+          f"{rec['iou_max_abs_err']:.2e}, "
+          f"stability {rec['stability_max_abs_err']:.2e} (tol {AUTO_SCORE_TOL}), mask pixels "
+          f"differing {rec['mask_pixel_diff_share']:.2e} (tol {AUTO_MASK_SHARE_TOL}); "
+          f"select_auto_masks {rec['select_s']:.3f} s, kept {kept}", flush=True)
+    _print_families(rows, busy)
+    print(json.dumps({"auto_mask": rec}), flush=True)
+    bad = []
+    if any(rec["launches"].values()):
+        bad.append(f"hand-written kernels launched {rec['launches']}; the path has none")
+    if rec["iou_max_abs_err"] > AUTO_SCORE_TOL or rec["stability_max_abs_err"] > AUTO_SCORE_TOL:
+        bad.append("predicted IoU or stability disagree with the CPU")
+    if rec["mask_pixel_diff_share"] > AUTO_MASK_SHARE_TOL:
+        bad.append("the masks disagree with the CPU's")
+    if not (m.dtype == torch.bool and m.shape == (768, 256, 256) and np.isfinite(
+            iou.numpy()).all() and ((stab >= 0) & (stab <= 1)).all()):
+        bad.append("the candidates' types, shapes or ranges are wrong")
+    if bad:
+        fail("auto_mask: " + "; ".join(bad))
+    return rec["launches"]
+
+
+def write_frames(root: str, n: int, seed: int, blank: int = 2) -> None:
+    """n 1280 x 720 PNG frames (make_photos' field and subject blob, side by
+    side with a second field); frame ``blank`` is one flat gray."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(root)
+    photos = make_photos(seed, 2 * n, 720)
+    for i in range(n):
+        frame = np.concatenate([photos[2 * i], photos[2 * i + 1][:, : 1280 - 720]], axis=1)
+        if i == blank:
+            frame = np.full_like(frame, 0.5)
+        Image.fromarray((frame * 255).astype(np.uint8)).save(os.path.join(root, f"{i:03d}.png"))
+
+
+def extract_phase(dev, card: str, clip_files: dict):
+    """The dataset extractor at full width (module docstring, phase 18).
+    Returns the kernels' launches of the CLI and the posed run together."""
+    import numpy as np
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import extract_dataset, tryon
+    from edgestyle_tpu_torch.data import curation
+
+    rec = {"card": card}
+    root = phase_out_dir("extract")
+    frames_dir = os.path.join(root, "frames")
+    write_frames(frames_dir, EXTRACT_FRAMES, 31)
+    clip = ["--tokenizer_dir", clip_files["tok_dir"], "--clip_model", clip_files["clip_dir"]]
+    built = []
+    system_cls = tryon.TryOnSystem
+
+    def capture(*a, **kw):  # keep main's system for the posed run
+        built.append(system_cls(*a, **kw))
+        return built[-1]
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tryon.TryOnSystem = capture
+    try:
+        line, _ = _captured(lambda: extract_dataset.main(
+            ["--random_init", "--input", frames_dir, "--output_dir",
+             os.path.join(root, "cli", "subject0"), "--every_n", "1", "--top_k",
+             str(EXTRACT_TOP_K), "--score_threshold", "0", *clip], device=dev))
+    finally:
+        tryon.TryOnSystem = system_cls
+    torch.cuda.synchronize()
+    rec["cli_s"] = time.perf_counter() - t0
+    rec["cli_stats"] = line
+    bad = []
+    boxed = line["box_from_pose"] + line["box_fallback"]
+    kept = boxed - line["dropped_no_pose_on_crop"] - line["dropped_low_score"]
+    if not (line["frames_in"] == EXTRACT_FRAMES and boxed + line["dropped_no_box"]
+            == EXTRACT_FRAMES and line["frames_written"] == min(kept, EXTRACT_TOP_K)):
+        bad.append(f"the CLI's stats do not account for every frame: {line}")
+
+    # the same system, its pose replaced by a known person (random weights
+    # find none): every frame is posed, so frames reach SAM, IQA and disk.
+    # Random weights predict a subject IoU of no meaning (-0.018 on the
+    # card), so this run opens the score gate; the CPU tests hold the gate
+    system = built[0]
+    times = {"pose": 0.0, "sam": 0.0, "iqa": 0.0}
+
+    def timed(name, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    kp = person_keypoints() * (512 / 46)
+    pose = timed("pose", system.detect_pose)
+    system.detect_pose = lambda img01: (kp.copy(), pose(img01)[1])
+    system.extract = timed("sam", system.extract)
+    tok, enc_img, enc_txt = curation._clip_encoders(clip_files["tok_dir"],
+                                                    clip_files["clip_dir"], dev)
+    iqa = timed("iqa", curation.ClipIQA(tok, enc_img, enc_txt, curation.EXTRACTION_PROMPT_PAIRS))
+    frames = extract_dataset.load_frames(frames_dir)
+    stats = {}
+    posed = os.path.join(root, "posed")
+    t0 = time.perf_counter()
+    n = extract_dataset.extract_subject(system, frames, os.path.join(posed, "subject0"),
+                                        top_k=EXTRACT_TOP_K, iqa=iqa,
+                                        score_threshold=-math.inf, stats=stats)
+    rec["posed_s"] = time.perf_counter() - t0
+    rec["posed_stats"] = dict(stats, frames_written=n)
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["s_per_frame"] = {"cli": rec["cli_s"] / EXTRACT_FRAMES,
+                          "posed": rec["posed_s"] / EXTRACT_FRAMES,
+                          **{k: v / EXTRACT_FRAMES for k, v in times.items()}}
+    if n != EXTRACT_TOP_K or stats["box_from_pose"] != EXTRACT_FRAMES:
+        bad.append(f"the posed run wrote {n} frames, stats {stats}")
+    for art in ("processed", "openpose", "openpose_json", "subject", "mask", "agnostic", "head",
+                "clothes"):
+        if len(os.listdir(os.path.join(posed, "subject0", art))) != n:
+            bad.append(f"{art}/ does not hold {n} files")
+    missing = curation.find_missing_artifacts(posed)
+    if missing:
+        bad.append(f"find_missing_artifacts found {missing}")
+    del system, built, iqa
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, out = _captured(lambda: curation.main(["bad", posed, *clip, "--worst_k", "3"], device=dev))
+    rec["curation_bad_s"] = time.perf_counter() - t0
+    scores = [float(ln.split()[0]) for ln in out.splitlines() if ln.strip()]
+    if len(scores) != 3 or not all(0 <= v <= 1 for v in scores) or scores != sorted(scores):
+        bad.append(f"curation bad printed {out!r}")
+    rec["curation_bad_scores"] = scores
+    if any(rec["launches"].values()):
+        bad.append(f"hand-written kernels launched {rec['launches']}; the path has none")
+    sp = rec["s_per_frame"]
+    print(f"extract ({card}): extract_dataset.main --random_init on {EXTRACT_FRAMES} frames of "
+          f"1280 x 720 with CLIP-IQA at ViT-L/14: {rec['cli_s']:.2f} s with the system's and "
+          f"the IQA's init, stats {line}; posed extract_subject {rec['posed_s']:.2f} s "
+          f"({sp['posed']:.3f} s a frame, of which pose net {sp['pose']:.3f}, SAM and the mask "
+          f"algebra {sp['sam']:.3f}, CLIP-IQA {sp['iqa']:.3f}), stats {stats}, {n} frames "
+          f"written; curation bad at full width {rec['curation_bad_s']:.2f} s, worst scores "
+          f"{scores}; kernel launches {rec['launches']}", flush=True)
+    print(json.dumps({"extract": rec}), flush=True)
+    if bad:
+        fail("extract: " + "; ".join(bad))
+    return rec["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -3685,7 +4182,11 @@ def main() -> int:
     pretrained_tryon_launches, pretrained_train_launches = pretrained_phase(dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mined_launches = mined_tryon_phase(dev, card)
+    # the CLIP files serve mined_tryon and, at the end, extract
+    clip_root = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    atexit.register(shutil.rmtree, clip_root, True)
+    clip_files = write_clip_files(clip_root, dev)
+    mined_launches = mined_tryon_phase(dev, card, clip_files)
     print(f"phase mined_tryon: {time.perf_counter() - t0:.2f} s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3710,6 +4211,18 @@ def main() -> int:
     t0 = time.perf_counter()
     infer_launches = infer_phase(dev, card)
     print(f"phase infer: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seg_launches = segmenter_phase(dev, card)
+    print(f"phase segmenter: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    auto_launches = auto_mask_phase(dev, card)
+    print(f"phase auto_mask: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    extract_launches = extract_phase(dev, card, clip_files)
+    print(f"phase extract: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
@@ -3722,7 +4235,9 @@ def main() -> int:
                "pretrained_tryon": pretrained_tryon_launches,
                "pretrained_training": pretrained_train_launches, "mined_tryon": mined_launches,
                "data_training": data_launches, "validation": validation_launches,
-               **distill_launches_by_run, "lcm_serving": lcm_launches, **infer_launches}
+               **distill_launches_by_run, "lcm_serving": lcm_launches, **infer_launches,
+               "segmenter": seg_launches, "auto_mask": auto_launches,
+               "extract": extract_launches}
     out = []
     for name, source, replaces, shapes in records:
         # the record's bound is the largest shape's; exponentials are

@@ -474,9 +474,16 @@ def _load_sam_params(preproc: TryOnPreprocessor, base_path: str, head_paths=None
                      device: DeviceLike = "cuda") -> Dict:
     """The base EfficientViT-SAM state dict and optional finetuned heads ->
     TryOnPreprocessor params (the reference's five-model load,
-    extract_dataset.py:44-49). A head's state dict may be the full model's
-    or its decoder's alone (segmenter_training_*.py:463); a head without a
-    checkpoint copies the base decoder."""
+    extract_dataset.py:44-49). A head without a checkpoint copies the base
+    decoder. A head's file may be in either of two layouts:
+
+      * torch's: the full model's state dict or its decoder's alone
+        (``torch.save(mask_decoder.state_dict())``,
+        segmenter_training_*.py:463), mapped by ``port_sam_state_dict``;
+      * the Flax layout that either package's ``train_segmenter`` writes
+        (``trained_decoder_<head>.safetensors``: ``hyper_mlps_0.layers_0.
+        kernel``, ..., with or without a ``mask_decoder.`` prefix), known by
+        its keys and converted by ``from_jax_params``."""
     cfg = preproc.cfg
     base = tree_from_flat(port_sam_state_dict(load_state_dict(base_path, device), cfg), device)
     decoders = {}
@@ -486,10 +493,29 @@ def _load_sam_params(preproc: TryOnPreprocessor, base_path: str, head_paths=None
             decoders[name] = copy_tree(base["mask_decoder"])
             continue
         sd = load_state_dict(path, device)
+        if _is_flax_decoder(sd):
+            decoders[name] = _flax_decoder(sd, device)
+            continue
         if not any(k.startswith(("image_encoder.", "mask_decoder.")) for k in sd):
             sd = {"mask_decoder." + k: v for k, v in sd.items()}  # decoder-only
         decoders[name] = tree_from_flat(port_sam_state_dict(sd, cfg), device)["mask_decoder"]
     return {"sam": base, "decoders": decoders}
+
+
+def _is_flax_decoder(sd: Dict) -> bool:
+    """A decoder in the Flax layout: its keys name Flax's ``hyper_mlps_<i>``,
+    which torch's state dicts call ``output_hypernetworks_mlps.<i>``."""
+    return any(".hyper_mlps_" in "." + k for k in sd)
+
+
+def _flax_decoder(sd: Dict, device: DeviceLike) -> Dict:
+    """A Flax-layout decoder state dict -> the port's decoder tree, fp32."""
+    from edgestyle_tpu_torch.core.params import unflatten
+    from edgestyle_tpu_torch.core.porting import from_jax_params
+
+    flat = {tuple(k.removeprefix("mask_decoder.").split(".")): v.float().cpu().numpy()
+            for k, v in sd.items()}
+    return from_jax_params(unflatten(flat), device, torch.float32)
 
 
 def sam_head_paths(args) -> dict:

@@ -177,6 +177,19 @@ def build_prompt_miner(tokenizer_dir: str, clip_model_dir: str, dtype=torch.floa
     ``text_cfg`` and ``vision_cfg``, ViT-L/14 by default) and tokenizer
     files onto ``device`` and assemble the zero-shot prompt miner (fp32
     towers by default)."""
+    dev = resolve_device(device)
+    tok, encode_image, encode_text = load_clip_towers(tokenizer_dir, clip_model_dir, dtype, dev,
+                                                      text_cfg, vision_cfg)
+    return PromptMiner(tok, BestEmbeddings(tok, encode_image, encode_text), dev)
+
+
+def load_clip_towers(tokenizer_dir: str, clip_model_dir: str, dtype=torch.float32,
+                     device: DeviceLike = "cuda", text_cfg: CLIPTextConfig = CLIPTextConfig(),
+                     vision_cfg: CLIPVisionConfig = CLIPVisionConfig()):
+    """The tokenizer and a CLIPModel directory's two towers on ``device``:
+    (tokenizer, encode_image(pixel_values (B, 3, 224, 224) CLIP-normalised)
+    -> (B, D), encode_text(ids (N, 77) int64) -> (N, D)), both without
+    gradients."""
     from edgestyle_tpu_torch.core.pretrained import load_clip_model_params
     from edgestyle_tpu_torch.data.tokenizer import CLIPTokenizer
 
@@ -195,7 +208,7 @@ def build_prompt_miner(tokenizer_dir: str, clip_model_dir: str, dtype=torch.floa
     def encode_image(px):
         return vis_m(params["vision"], px)["image_embeds"]
 
-    return PromptMiner(tok, BestEmbeddings(tok, encode_image, encode_text), dev)
+    return tok, encode_image, encode_text
 
 
 def clip_similarity(encode_image_fn, imgs_a, imgs_b) -> torch.Tensor:

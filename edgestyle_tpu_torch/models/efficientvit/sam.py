@@ -20,9 +20,13 @@ the mask decoder run in fp32 (the JAX modules have no dtype of their own
 and the embedding is promoted by the dense prompt), with the decoder
 attention's own fp32 softmax, not ops/attention.py.
 
-Automatic mask generation (``automatic_mask_candidates``,
-``select_auto_masks``) serves only the dataset extractor and is not ported
-yet (ROADMAP Queue 1 item 15).
+Automatic mask generation (:func:`build_point_grid`,
+:func:`stability_score`, :func:`automatic_mask_candidates`,
+:func:`select_auto_masks`; the reference's
+EfficientViTSamAutomaticMaskGenerator, efficientvit sam.py:460-514) serves
+the dataset extractor: one image encoding, the grid points decoded a chunk
+at a time with three masks each, then the host's threshold filtering and
+greedy mask-IoU NMS in numpy.
 """
 
 from __future__ import annotations
@@ -296,6 +300,100 @@ def postprocess_masks(masks: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Ten
     """(B, M, 256, 256) logits -> (B, M, *out_hw), jax.image.resize's
     bilinear (ops/resize.py::linear_resize)."""
     return linear_resize(masks, out_hw)
+
+
+# --------------------------------------------------------------------------
+# Automatic mask generation: a uniform point grid -> multimask decodes ->
+# predicted-IoU and stability filtering -> NMS. The device part (one encode,
+# every grid point decoded, chunk by chunk so activations stay bounded)
+# returns bool masks, 8x fewer bytes to the host than logits; the cheap
+# data-dependent tail runs on the host, as in the reference.
+# --------------------------------------------------------------------------
+def build_point_grid(points_per_side: int, prompt_input_size: int = 1024,
+                     device=None) -> torch.Tensor:
+    """Uniform cell-centred grid over the image in the prompt frame:
+    (points_per_side ** 2, 1, 2) xy coords, half a cell from the borders
+    (the reference's build_point_grid)."""
+    step = 1.0 / points_per_side
+    xs = (torch.arange(points_per_side, dtype=torch.float32, device=device) + 0.5) * step
+    gx, gy = torch.meshgrid(xs, xs, indexing="xy")
+    pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1) * prompt_input_size
+    return pts[:, None, :]
+
+
+def stability_score(mask_logits: torch.Tensor, mask_threshold: float = 0.0,
+                    offset: float = 1.0) -> torch.Tensor:
+    """SAM's stability score: the IoU of the binarisations at threshold +-
+    offset (the tight mask's area over the loose mask's)."""
+    f = mask_logits.float()
+    inter = (f > (mask_threshold + offset)).sum(dim=(-2, -1))
+    union = (f > (mask_threshold - offset)).sum(dim=(-2, -1))
+    return inter / torch.clamp(union, min=1)
+
+
+@torch.no_grad()
+def automatic_mask_candidates(sam: EfficientViTSam, params: Dict, image: torch.Tensor,
+                              points_per_side: int = 16, chunk: int = 64):
+    """One image (1, 3, S, S), SAM-normalised -> every grid point's three
+    mask candidates: (masks bool (N * 3, 256, 256), iou (N * 3,), stability
+    (N * 3,)) with N = points_per_side ** 2, one positive point per decode.
+    Feed them to :func:`select_auto_masks`."""
+    emb = sam.encode_image(params, image)
+    pts = build_point_grid(points_per_side, sam.cfg.prompt_input_size, image.device)
+    n = pts.shape[0]
+    chunk = min(chunk, n)
+    if n % chunk:
+        raise ValueError(f"points_per_side**2={n} not divisible by chunk={chunk}")
+    e = emb.expand(chunk, *emb.shape[1:])
+    lbl = torch.ones((chunk, 1), dtype=torch.long, device=image.device)
+    out_m, out_iou, out_stab = [], [], []
+    for p in pts.reshape(-1, chunk, 1, 2):
+        masks, iou = sam.decode(params, e, p, lbl, True)
+        out_m.append(masks > 0.0)
+        out_iou.append(iou)
+        out_stab.append(stability_score(masks))
+    masks = torch.cat(out_m)
+    return (masks.reshape(-1, *masks.shape[-2:]), torch.cat(out_iou).reshape(-1),
+            torch.cat(out_stab).reshape(-1))
+
+
+def select_auto_masks(masks, iou, stability, pred_iou_thresh: float = 0.88,
+                      stability_thresh: float = 0.95, nms_iou: float = 0.7, min_area: int = 0):
+    """The host tail of automatic mask generation: keep candidates whose
+    predicted IoU and stability pass their thresholds, then greedy mask-IoU
+    NMS in descending predicted-IoU order. Returns a list of
+    {segmentation, predicted_iou, stability_score} dicts (the reference
+    generator's output schema)."""
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    masks = host(masks)
+    iou = host(iou).astype(np.float32)
+    stability = host(stability).astype(np.float32)
+    areas = masks.reshape(masks.shape[0], -1).sum(-1)
+    keep = (iou >= pred_iou_thresh) & (stability >= stability_thresh) & (areas > min_area)
+    order = np.argsort(-iou)
+    order = order[keep[order]]
+    out = []
+    for idx in order:
+        m = masks[idx]
+        dup = False
+        for prev in out:
+            p = prev["segmentation"]
+            inter = np.logical_and(m, p).sum()
+            union = np.logical_or(m, p).sum()
+            if union and inter / union > nms_iou:
+                dup = True
+                break
+        if not dup:
+            out.append({
+                "segmentation": m,
+                "predicted_iou": float(iou[idx]),
+                "stability_score": float(stability[idx]),
+            })
+    return out
 
 
 # --------------------------------------------------------------------------
