@@ -47,7 +47,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      quality, aggressive, turbo) and DPM++ at 20 steps, ``--mode lcm`` (4
      steps) on the UNet merged with a seeded rank-64 LCM-LoRA, and a ToMe
      ratio (0.3) whose merged 2868 tokens are off the flash kernel's tile
-     grid; each one warm-up and three timed requests, the kernels' launches
+     grid; each one warm-up and SERVING_TIMED timed requests, the kernels' launches
      against the counts the code predicts, the image's difference from the
      exact one printed (not held); held: the knobs at their exact values
      give the exact image bit for bit, ``shallow_forward`` on the deep
@@ -81,6 +81,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      request's 400 and a request after it; then ``--int8_scales`` (4d's
      table) with EDGESTYLE_QUANT=int8-static, one request; a ``{"serve":
      ...}`` line;
+  4f. export (``export_phase``): the deployment export at full width, bf16,
+     B=1, into build/torch_ext/chip_smoke_export/: ``apps/export.py::main
+     --random_init --what all`` (five ``torch.export`` programs, each
+     reload held to the live function; trace, save and reload seconds, file
+     sizes, graph nodes); each reloaded graph on the live pipeline's inputs
+     with the launches the code predicts; a 20-step host-loop generation
+     through ``ArtifactPipeline`` against the live ``__call__`` on the same
+     latents (E2E_TOL, the generation's 440 / 2,128 / 2,128 launches); the
+     ``--mode aggressive`` generate program (cut to EXPORT_GENERATE_STEPS)
+     served against the live pipeline under the same knobs and refusing a
+     request without them; ``apps/tryon.py::main --exported_dir``;
+     ``entry()``'s step; the operators' host cost a call against the ctypes
+     wrapper and a ``custom_op``; an ``{"export": ...}`` line;
   5. training phase: the ControlLoRA trainer's entry point
      (``apps/train.py::main``) at full width, 512 px, micro-batch 2, 3
      steps of Prodigy with Min-SNR-gamma 5, from the port's random init,
@@ -878,7 +891,7 @@ SERVING_RUNS = {
     "lcm": (["--mode", "lcm"], 4, (0, 1, 2, 3), (0, 1, 2, 3)),
     "tome_0.3_off_grid": (["--tome", "0.3"], SERVING_STEPS, ALL, ALL),
 }
-SERVING_TIMED = 3
+SERVING_TIMED = 2
 LCM_LORA_RANK = 64
 # A cfg_interval (0, 0) generation (B rows, conditional context) against
 # guidance 1.0 (2B rows, uncond + 1 * (cond - uncond)): the same function,
@@ -1158,7 +1171,7 @@ INT8_PER_STEP = {"conv": 64 + 3 * 38, "dense": 192 + 3 * 84}
 INT8_LAUNCHES = {"flash_fwd": 22 * GEN_STEPS, "gn_scale_shift": VAE_CONV_LAUNCHES,
                  "fused_gn_silu_conv3x3": VAE_CONV_LAUNCHES, "flash_bwd_dq": 0,
                  "flash_bwd_dkv": 0}
-INT8_WALL_REPS = 2
+INT8_WALL_REPS = 1
 
 
 def _int8_conv_case(gen_cpu, b, cin, h, w, cout, k):
@@ -1381,6 +1394,291 @@ def int8_out_dir() -> str:
     d = os.path.join(HERE, "build", "torch_ext", "chip_smoke_int8")
     os.makedirs(d, exist_ok=True)
     return d
+
+
+# ----------------------------------------------------------------- export
+# Launches of each reloaded per-stage graph at SD1.5 width, 512 px, B=1,
+# from the code: one denoise step is GEN_LAUNCHES_PER_REQUEST's step (22
+# flash, 104 GN statistics + 104 conv); the VAE encoder has 10 ResNet
+# blocks (cond_embed runs it once on the three latent conds in one batch),
+# the decoder 14; the text encoder (77 tokens, LayerNorm) and the
+# conv-stack cond embedding launch none. The VAE's mid attention (one head
+# of 512) is past the flash kernel's head dim.
+EXPORT_GRAPH_LAUNCHES = {"text_encoder": (0, 0), "cond_embed": (0, 2 * 10),
+                         "unet_controlnet": (22, 104), "vae_encoder": (0, 2 * 10),
+                         "vae_decoder": (0, 2 * 14)}
+# The aggressive generate program, cut from 20 steps to 2 with the ControlNet
+# refreshed at step 0 alone (the preset's schedule, 0 1 2 4 7 11 16, caches
+# no step below 3), so that one step reads the cache: its trace, save and
+# two reloads take ~5 ms a graph node on the card's host, and 20 steps
+# would hold ~140,000 nodes (PERF.md).
+EXPORT_GENERATE_STEPS = 2
+EXPORT_GENERATE_ARGV = ["--mode", "aggressive", "--steps", str(EXPORT_GENERATE_STEPS),
+                        "--controlnet_cache_steps", "0"]
+OP_OVERHEAD_CALLS = 2000
+# apps/export.py's bf16 bound (the JAX CLI's): the reloaded graph against the
+# live function, elementwise, with this share of elements allowed outside
+EXPORT_TOL = {"rtol": 5e-2, "atol": 5e-2}
+EXPORT_MAX_VIOLATION_FRAC = 0.05
+
+
+def export_out_dir() -> str:
+    """The export phase's artifacts, inside the checkout (git-ignored)."""
+    d = os.path.join(HERE, "build", "torch_ext", "chip_smoke_export")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _launch_counts(flash: int, conv: int) -> dict:
+    return {"flash_fwd": flash, "gn_scale_shift": conv, "fused_gn_silu_conv3x3": conv,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _max_diff(a, b) -> float:
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    if len(la) != len(lb) or any(x.shape != y.shape for x, y in zip(la, lb)):
+        fail("export: a reloaded graph's outputs differ in structure from the live function's")
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(la, lb))
+
+
+def op_overhead_us(dev) -> dict:
+    """Host microseconds a call of the GN statistics launch, at a shape
+    small enough that the host bounds it: the ctypes wrapper called
+    directly, the ``edgestyle::gn_scale_shift`` operator (ops/library.py's
+    ``Library.define`` + ``impl``), and the same wrapper as a
+    ``torch.library.custom_op`` made here for the comparison alone. Median
+    of three turns each, in the order direct, op, custom, custom, op,
+    direct."""
+    from edgestyle_tpu_torch.ops import fused_conv
+
+    x = torch.randn((1, 32, 8, 8), device=dev, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    gamma, beta = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+
+    @torch.library.custom_op("chip_smoke::gn_scale_shift", mutates_args=())
+    def custom(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
+               eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+        return fused_conv.gn_scale_shift_cuda(x, gamma, beta, groups, eps)
+
+    fns = {"direct": lambda: fused_conv.gn_scale_shift_cuda(x, gamma, beta, 8, 1e-5),
+           "op": lambda: fused_conv.GN_SCALE_SHIFT(x, gamma, beta, 8, 1e-5),
+           "custom_op": lambda: custom(x, gamma, beta, 8, 1e-5)}
+    times = {k: [] for k in fns}
+    for k in ("direct", "op", "custom_op") * 2 + ("custom_op", "op", "direct"):
+        fn = fns[k]
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_OVERHEAD_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0) / OP_OVERHEAD_CALLS * 1e6)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def export_phase(dev, pipe, params, gen, card: str):
+    """The deployment export at full width, bf16, B=1 (apps/export.py,
+    core/export.py, pipelines/artifact.py): ``--what all`` with each
+    reload's parity assert; each reloaded graph on the live pipeline's
+    inputs with its launches; a 20-step host-loop generation through the
+    graphs against the live ``__call__`` on the same latents (E2E_TOL,
+    the generation's launch counts); ``--what generate --mode aggressive``
+    (EXPORT_GENERATE_STEPS) served against the live pipeline under the same
+    knobs; the try-on CLI with ``--exported_dir``; ``entry()``'s step; the
+    operators' host overhead. The generation phase's params drive every
+    artifact (the graphs take the weights as inputs)."""
+    import numpy as np
+    from PIL import Image
+    from torch.utils import _pytree as pytree
+
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import export, tryon
+    from edgestyle_tpu_torch.core.export import load_program, parity_violations
+    from edgestyle_tpu_torch.entry import entry
+    from edgestyle_tpu_torch.pipelines.artifact import ArtifactPipeline, stage_params
+
+    cfg = pipe.cfg
+    root = export_out_dir()
+    all_dir, gen_dir = os.path.join(root, "all"), os.path.join(root, "aggressive")
+    rec = {"card": card}
+
+    # 1. --what all: five programs, each saved, reloaded and held
+    t0 = time.perf_counter()
+    report = export.main(["--random_init", "--what", "all", "--output_dir", all_dir], device=dev)
+    rec["export_all_s"] = time.perf_counter() - t0
+    rec["graphs"] = {k: dict(v["export"], flops=v["flops"]) for k, v in report.items()}
+    for k, v in rec["graphs"].items():
+        print(f"export {k}: trace {v['trace_s']:.2f} s, save {v['save_s']:.2f} s, reload "
+              f"{v['load_s']:.2f} s, {v['bytes'] / 2**20:.2f} MiB, {v['nodes']} nodes, "
+              f"{v['flops'] / 1e9:.1f} GFLOP, outside the bound {v['violation_frac']:.3e}, "
+              f"max abs diff {v['max_abs_diff']:.3e}", flush=True)
+
+    # 2. each reloaded graph on the live pipeline's inputs
+    t0 = time.perf_counter()
+    art = ArtifactPipeline(all_dir, device=dev)
+    enc = load_program(os.path.join(all_dir, "vae_encoder.pt2"))
+    rec["artifact_load_s"] = time.perf_counter() - t0
+    ids, neg, imgs, lat = make_request(gen, dev, 1, cfg.num_branches, cfg.latent_branches)
+    imgs = [im.float().contiguous(memory_format=torch.channels_last) for im in imgs]
+    sample = lat.float().contiguous(memory_format=torch.channels_last)
+    t = torch.tensor(999, dtype=torch.long, device=dev)
+    g = torch.tensor(3.5, device=dev)
+    sf = cfg.vae.scaling_factor
+    noise = torch.randn(lat.shape, generator=gen, device=dev, dtype=pipe.dtype)
+    ones = np.ones((cfg.num_branches,), np.float32)
+    part = lambda name: stage_params(name, params)  # noqa: E731
+    with torch.no_grad():
+        ctx = pipe.encode_prompt(params, ids, neg)
+        embs = [torch.cat([e, e]) for e in pipe.embed_cond_images(params, imgs)]
+        mean, logvar = pipe.vae.encode_moments(params["vae"], imgs[0])
+        cases = {
+            "text_encoder": (art.graphs["text_encoder"], (part("text_encoder"), ids, neg), ctx),
+            "cond_embed": (art.graphs["cond_embed"], (part("cond_embed"), imgs), embs),
+            "unet_controlnet": (art.graphs["unet_controlnet"],
+                                (part("unet_controlnet"), sample, t, ctx, embs, g),
+                                pipe._eval_step(True, params, ctx, None, embs, ones, g, 1, False,
+                                                sample, t)),
+            "vae_encoder": (enc, (part("vae_encoder"), imgs[0], noise),
+                            (mean + torch.exp(0.5 * logvar) * noise) * sf),
+            "vae_decoder": (art.graphs["vae_decoder"], (part("vae_decoder"), sample), torch.clamp(
+                pipe.vae.decode(params["vae"], sample / sf).float() / 2 + 0.5, 0, 1)),
+        }
+    rec["reloaded_on_live_inputs"] = {}
+    for name, (prog, args, live) in cases.items():
+        kernels.reset_launches()
+        out = prog.call(*args)
+        torch.cuda.synchronize()
+        per = dict(kernels.LAUNCHES)
+        diff = _max_diff(out, live)
+        frac = max(parity_violations(a, b, **EXPORT_TOL)[0] for a, b in zip(
+            pytree.tree_leaves(live), pytree.tree_leaves(out)))
+        want = _launch_counts(*EXPORT_GRAPH_LAUNCHES[name])
+        rec["reloaded_on_live_inputs"][name] = {"max_abs_diff": diff, "violation_frac": frac,
+                                                "launches": per}
+        print(f"reloaded {name} on the live inputs: max abs diff vs live {diff:.3e}, share "
+              f"outside {EXPORT_TOL} {frac:.3e}, launches {per}", flush=True)
+        if per != want:
+            fail(f"export: reloaded {name} launched {per}, the code predicts {want}")
+        if frac > EXPORT_MAX_VIOLATION_FRAC:
+            fail(f"export: reloaded {name} differs from the live function beyond the export's "
+                 f"bf16 bound")
+
+    # 3. the host loop over the graphs against the live pipeline, 20 steps
+    ids, neg, imgs, lat = make_request(gen, dev, 1, cfg.num_branches, cfg.latent_branches)
+    art(params, ids, neg, imgs, latents=lat, num_inference_steps=2)  # warm-up
+    walls, outs = {"live": [], "artifact": []}, {}
+    for which in ("artifact", "live"):
+        fn = pipe if which == "live" else art
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[which] = fn(params, ids, neg, imgs, latents=lat, num_inference_steps=GEN_STEPS)
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+        if which == "artifact" and dict(kernels.LAUNCHES) != GEN_LAUNCHES_PER_REQUEST:
+            fail(f"export: the host-loop generation launched {dict(kernels.LAUNCHES)}, the "
+                 f"live generation's counts are {GEN_LAUNCHES_PER_REQUEST}")
+    check_images(outs["artifact"], 1, "export host loop")
+    diff = (outs["artifact"] - outs["live"]).abs().max().item()
+    rec["host_loop"] = {"steps": GEN_STEPS, "max_abs_diff": diff, "artifact_s": walls["artifact"],
+                        "live_s": walls["live"]}
+    print(f"host loop over the graphs, {GEN_STEPS} UniPC steps: {walls['artifact']} s against "
+          f"the live pipeline's {walls['live']} s; image max abs diff {diff:.3e} (tol "
+          f"{E2E_TOL})", flush=True)
+    if not diff <= E2E_TOL:
+        fail("export: the host-loop artifact's image differs from the live pipeline's")
+    by_path = {"export": dict(GEN_LAUNCHES_PER_REQUEST)}
+
+    # 4. the aggressive whole-generation program
+    argv = ["--random_init", "--what", "generate", *EXPORT_GENERATE_ARGV, "--output_dir",
+            gen_dir]
+    t0 = time.perf_counter()
+    report = export.main(argv, device=dev)
+    rec["export_generate_s"] = time.perf_counter() - t0
+    rec["generate"] = dict(report["generate"]["export"], flops=report["generate"]["flops"])
+    t0 = time.perf_counter()
+    gart = ArtifactPipeline(gen_dir, device=dev)
+    rec["generate"]["artifact_load_s"] = time.perf_counter() - t0
+    knobs = tryon.serving_kwargs(export.parse_args(argv))
+    steps = EXPORT_GENERATE_STEPS
+    want = serving_launches(steps, knobs["controlnet_cache_steps"], tuple(range(steps)))
+    gart(params, ids, neg, imgs, latents=lat, num_inference_steps=steps, **knobs)  # warm-up
+    gwalls, gouts = {"live": [], "artifact": []}, {}
+    for which in ("artifact", "live"):
+        fn = pipe if which == "live" else gart
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gouts[which] = fn(params, ids, neg, imgs, latents=lat, num_inference_steps=steps, **knobs)
+        torch.cuda.synchronize()
+        gwalls[which].append(time.perf_counter() - t0)
+        if which == "artifact" and dict(kernels.LAUNCHES) != want:
+            fail(f"export: the generate program launched {dict(kernels.LAUNCHES)}, the code "
+                 f"predicts {want}")
+    check_images(gouts["artifact"], 1, "export generate")
+    diff = (gouts["artifact"] - gouts["live"]).abs().max().item()
+    rec["generate"].update(steps=steps, knobs={k: list(v) if isinstance(v, tuple) else v
+                                               for k, v in knobs.items()},
+                           max_abs_diff=diff, artifact_s=gwalls["artifact"],
+                           live_s=gwalls["live"], launches=want)
+    print(f"generate program (--mode aggressive, {steps} steps, knobs {knobs}): export "
+          f"{rec['export_generate_s']:.2f} s ({rec['generate']['bytes'] / 2**20:.2f} MiB), "
+          f"{gwalls['artifact']} s against the live {gwalls['live']} s, image max abs diff "
+          f"{diff:.3e} (tol {E2E_TOL})", flush=True)
+    if not diff <= E2E_TOL:
+        fail("export: the generate program's image differs from the live pipeline's")
+    try:
+        gart(params, ids, neg, imgs, latents=lat, num_inference_steps=steps)
+        fail("export: the generate program served a request without its baked knobs")
+    except ValueError:
+        pass
+
+    # 5. the try-on CLI on the per-stage artifact
+    photos = []
+    for i, ph in enumerate(make_photos(3, 3, 512)):
+        photos.append(os.path.join(root, f"photo{i}.png"))
+        Image.fromarray((ph * 255).astype(np.uint8)).save(photos[-1])
+    argv = ["--random_init", "--subject", photos[0], "--clothes1", photos[1], "--clothes2",
+            photos[2], "--exported_dir", all_dir, "--out", os.path.join(root, "result.png")]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    image = tryon.main(argv, device=dev)
+    torch.cuda.synchronize()
+    rec["tryon_cli_s"] = time.perf_counter() - t0
+    rec["tryon_cli_launches"] = dict(kernels.LAUNCHES)
+    print(f"try-on CLI --exported_dir: {rec['tryon_cli_s']:.2f} s, launches "
+          f"{rec['tryon_cli_launches']}, image mean {float(image.mean()):.4f}", flush=True)
+    if image.shape != (512, 512, 3) or not (np.isfinite(image).all() and image.min() >= 0
+                                           and image.max() <= 1):
+        fail("export: the try-on CLI's image through the artifact is not a finite [0, 1] "
+             "512 px image")
+    if rec["tryon_cli_launches"] != GEN_LAUNCHES_PER_REQUEST:
+        fail(f"export: the try-on CLI through the artifact launched "
+             f"{rec['tryon_cli_launches']}, the generation's counts are "
+             f"{GEN_LAUNCHES_PER_REQUEST}")
+
+    # 6. entry(): the flagship step, once
+    fn, ex = entry(dev)
+    kernels.reset_launches()
+    with torch.no_grad():
+        noise_pred = fn(*ex)
+    torch.cuda.synchronize()
+    rec["entry_launches"] = dict(kernels.LAUNCHES)
+    if (tuple(noise_pred.shape) != (1, 4, 64, 64) or not torch.isfinite(noise_pred).all()
+            or rec["entry_launches"] != _launch_counts(22, 104)):
+        fail(f"export: entry()'s step gave {tuple(noise_pred.shape)}, launches "
+             f"{rec['entry_launches']}")
+    del fn, ex, noise_pred
+
+    # 7. the operators' host cost a call
+    rec["op_overhead_us"] = op_overhead_us(dev)
+    print(f"host us a call (GN statistics, (1, 32, 8, 8)): {rec['op_overhead_us']}", flush=True)
+    print(json.dumps({"export": rec}), flush=True)
+    return by_path["export"]
 
 
 # ----------------------------------------------------------------- serve
@@ -4169,6 +4467,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_launches = serve_phase(dev, pipe, params, card, int8_table)
     print(f"phase serve: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    export_launches = export_phase(dev, pipe, params, gen, card)
+    print(f"phase export: {time.perf_counter() - t0:.2f} s", flush=True)
     del pipe, params
     torch.cuda.empty_cache()
 
@@ -4231,7 +4532,7 @@ def main() -> int:
              "flash_bwd_dkv": "training"}
     by_path = {"generation": launches, "tryon_system": tryon_launches,
                "serving": serving_launches_total, "int8": int8_launches,
-               "serve": serve_launches, "training": train_launches,
+               "serve": serve_launches, "export": export_launches, "training": train_launches,
                "pretrained_tryon": pretrained_tryon_launches,
                "pretrained_training": pretrained_train_launches, "mined_tryon": mined_launches,
                "data_training": data_launches, "validation": validation_launches,

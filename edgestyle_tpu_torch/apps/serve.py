@@ -311,6 +311,10 @@ def main(argv=None, device: DeviceLike = "cuda") -> None:
     from edgestyle_tpu_torch.apps.tryon import TryOnSystem
 
     args = parse_args(argv)
+    if args.max_batch > 1 and getattr(args, "exported_dir", None):
+        raise SystemExit(
+            "--max_batch > 1 requires the live pipeline; artifact serving "
+            "(--exported_dir) is single-request")
     system = TryOnSystem(random_init=args.random_init, args=args, device=device)
     try:
         import gradio  # noqa: F401

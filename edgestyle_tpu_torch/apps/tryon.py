@@ -21,9 +21,11 @@ photo by CLIP (``--clip_model``, a CLIPModel safetensors directory, with
 serving (``EDGESTYLE_QUANT=int8`` or ``int8-static``, the latter with a
 calibration table from ``--int8_scales`` or calibrated on the first
 request). ``TryOnSystem.generate_batch`` runs several requests as one
-generation (apps/serve.py's dynamic batching). ``--exported_dir`` raises
-``NotImplementedError`` naming its ROADMAP item (:func:`refuse_unported`);
-with ``--random_init`` the weight flags are ignored, as in the JAX app.
+generation (apps/serve.py's dynamic batching). ``--exported_dir`` generates
+through apps/export.py's artifacts (pipelines/artifact.py::ArtifactPipeline:
+the per-stage graphs, exact semantics only, or a whole-generation program
+with its knobs baked in); with ``--random_init`` the weight flags are
+ignored, as in the JAX app.
 
     python -m edgestyle_tpu_torch.apps.tryon --random_init \\
         --subject person.jpg --clothes1 donor1.jpg --clothes2 donor2.jpg --out result.png
@@ -41,6 +43,7 @@ with ``--random_init`` the weight flags are ignored, as in the JAX app.
 from __future__ import annotations
 
 import argparse
+import os
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -63,12 +66,12 @@ from edgestyle_tpu_torch.models.openpose import (
     score_limb_candidates,
     smooth_heatmaps,
 )
+from edgestyle_tpu_torch.pipelines.artifact import GENERATE_GRAPH, ArtifactPipeline
 from edgestyle_tpu_torch.pipelines.preprocess import HEAD_NAMES, TryOnPreprocessor, copy_tree
 from edgestyle_tpu_torch.pipelines.tryon import SCHEDULERS, EdgeStylePipeline, PipelineConfig
 from edgestyle_tpu_torch.training.checkpoint import import_safetensors
 from edgestyle_tpu_torch.training.distill import apply_lcm_lora
 
-ROADMAP_APPS = "ROADMAP.md Queue 1 item 15"
 CANVAS = 512  # pose renders and SAM run at the 512 px working size
 
 # The serving presets of the JAX app: named bundles of the opt-in
@@ -214,13 +217,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a flag that
-    asks for something this port does not carry yet: ``--exported_dir``."""
-    if getattr(args, "exported_dir", None):
-        raise NotImplementedError(f"--exported_dir is not ported yet ({ROADMAP_APPS})")
-
-
 def load_image_512(path: str) -> np.ndarray:
     """Load -> pad to a white square -> 512 nearest, as the reference's
     resize_image_by_padding (inference.py:450-459). PIL is imported here
@@ -295,7 +291,10 @@ class TryOnSystem:
     ``random_init``, initialised after the pose net and SAM from the same
     generator. ``args``' serving mode and knobs (:func:`apply_serving_mode`)
     go to every generation; ``--lcm_lora`` adapters are merged into the
-    UNet."""
+    UNet. With ``--exported_dir`` the generation runs through an
+    :class:`ArtifactPipeline` of that directory (``self.pipe``) on the
+    weights laid out for the live pipeline; a serving knob then needs a
+    whole-generation artifact, which checks it against what it bakes."""
 
     pose_size = 184  # the pose net's working scale (the original's 0.5 * 368)
     knobs: Dict = {}  # the pipeline call's serving knobs (serving_kwargs); {} is exact
@@ -304,7 +303,6 @@ class TryOnSystem:
                  device: DeviceLike = "cuda", pipe: Optional[EdgeStylePipeline] = None,
                  gen_params: Optional[Dict] = None):
         if args is not None:
-            refuse_unported(args)
             apply_serving_mode(args)
             self.knobs = serving_kwargs(args)
         self.device = resolve_device(device)
@@ -321,13 +319,25 @@ class TryOnSystem:
             raise ValueError(f"the pipeline handed in does not run --scheduler {scheduler} "
                              f"--tome {tome}")
         self.pipe = pipe
+        exported = getattr(args, "exported_dir", None)
+        if exported:
+            if (self.knobs or pipe.tome is not None) and not os.path.exists(
+                    os.path.join(exported, GENERATE_GRAPH)):
+                raise ValueError(
+                    "--controlnet_cache_interval / --unet_cache_interval "
+                    "> 1, --controlnet_cache_steps / --unet_cache_steps, "
+                    "--cfg_interval and --tome need the live pipeline or a "
+                    "one-program artifact (apps/export.py --what generate "
+                    "--mode ...): the per-stage artifact path runs the "
+                    "denoise step as a fixed exact-semantics graph")
+            self.pipe = ArtifactPipeline(exported, scheduler=scheduler, device=self.device)
         self.gen_params = gen_params
         if random_init:
             gen = make_generator(seed, self.device)
             self.pose_params = self.pose_net.init_params(gen)
             self.sam_params = self.preproc.init_params(gen)
             if self.gen_params is None:
-                self.gen_params = self.pipe.init_params(gen)
+                self.gen_params = pipe.init_params(gen)
         else:
             if not (getattr(args, "bodypose_checkpoint", None)
                     and getattr(args, "sam_checkpoint", None)):
@@ -342,7 +352,7 @@ class TryOnSystem:
             if self.gen_params is None and getattr(args, "pretrained_model", None):
                 self.gen_params = load_pipeline_params(
                     args.pretrained_model, args.vae, args.openpose_controlnet,
-                    edgestyle_checkpoint=args.edgestyle_checkpoint, pipe=self.pipe,
+                    edgestyle_checkpoint=args.edgestyle_checkpoint, pipe=pipe,
                     generator=make_generator(seed, self.device))
         lcm_path = getattr(args, "lcm_lora", None)
         if lcm_path:
@@ -355,7 +365,7 @@ class TryOnSystem:
                           "sampling of undistilled weights gives collapsed images; pass "
                           "distilled LCM-LoRA adapters for real serving", stacklevel=2)
         if getattr(args, "int8_scales", None):
-            self.pipe.load_int8_scales(args.int8_scales)
+            pipe.load_int8_scales(args.int8_scales)
 
     # -------------------------------------------------------------- pose
     def detect_pose(self, img01: np.ndarray) -> Tuple[Optional[np.ndarray], np.ndarray]:
@@ -394,10 +404,9 @@ class TryOnSystem:
     # ----------------------------------------------------------- generate
     def generate(self, cond: Dict[str, np.ndarray], prompt_ids, neg_ids, steps: int = 20,
                  guidance: float = 3.5, seed: int = 0) -> np.ndarray:
-        """The six cond images (HWC in [0, 1]) -> the try-on image (H, W, 3):
-        :meth:`generate_batch` of the one request."""
-        return self.generate_batch([cond], prompt_ids, neg_ids, steps=steps, guidance=guidance,
-                                   seeds=(seed,))[0]
+        """The six cond images (HWC in [0, 1]) -> the try-on image (H, W, 3),
+        through the live pipeline or the artifact."""
+        return self._generate_rows([cond], prompt_ids, neg_ids, steps, guidance, (seed,))[0]
 
     def generate_batch(self, conds: List[Dict[str, np.ndarray]], prompt_ids, neg_ids,
                        steps: int = 20, guidance=3.5, seeds=(0,)) -> np.ndarray:
@@ -408,7 +417,16 @@ class TryOnSystem:
         what that request alone would, up to the batch's reduction order on
         the card. A single request's generator also feeds the LCM sampler's
         re-noise; a batch's re-noise starts from seed 0, as the JAX
-        package's batched path."""
+        package's batched path. The live pipeline's alone: an artifact
+        (``--exported_dir``) serves one request at a time."""
+        if isinstance(self.pipe, ArtifactPipeline):
+            raise ValueError(
+                "batched generation needs the live pipeline: the artifact "
+                "path (--exported_dir) supports neither explicit latents "
+                "nor per-sample guidance")
+        return self._generate_rows(conds, prompt_ids, neg_ids, steps, guidance, seeds)
+
+    def _generate_rows(self, conds, prompt_ids, neg_ids, steps, guidance, seeds) -> np.ndarray:
         self._check_gen_params()
         if len(seeds) != len(conds):
             raise ValueError(f"{len(conds)} requests but {len(seeds)} seeds: one seed per "
@@ -417,9 +435,12 @@ class TryOnSystem:
         imgs = [_nchw(stack(k) * 2.0 - 1.0) if k in ("agnostic", "clothes1", "clothes2")
                 else _nchw(stack(k)) for k in ("agnostic", "subject_pose", "clothes1",
                                                  "clothes1_pose", "clothes2", "clothes2_pose")]
-        ds = self.pipe.vae_downscale
-        shape = (1, self.pipe.cfg.unet.in_channels, imgs[0].shape[2] // ds,
-                 imgs[0].shape[3] // ds)
+        if isinstance(self.pipe, ArtifactPipeline):
+            shape = (1, *self.pipe.latent_shape[1:])
+        else:
+            ds = self.pipe.vae_downscale
+            shape = (1, self.pipe.cfg.unet.in_channels, imgs[0].shape[2] // ds,
+                     imgs[0].shape[3] // ds)
         gens = [make_generator(s, self.device) for s in seeds]
         lat = torch.cat([torch.randn(shape, generator=g, device=self.device,
                                      dtype=torch.float32) for g in gens])
@@ -553,6 +574,10 @@ def main(argv=None, device: DeviceLike = "cuda") -> np.ndarray:
 
     if args.fused:
         from edgestyle_tpu_torch.pipelines.full import FusedTryOn
+
+        if isinstance(system.pipe, ArtifactPipeline):
+            raise ValueError("--fused runs the live pipeline's program; it takes no "
+                             "--exported_dir")
 
         system._check_gen_params()
         kps = []

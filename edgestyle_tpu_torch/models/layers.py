@@ -19,7 +19,7 @@ from edgestyle_tpu_torch.core.params import param, sub
 from edgestyle_tpu_torch.ops import quant
 from edgestyle_tpu_torch.ops.attention import multi_head_attention
 from edgestyle_tpu_torch.ops.fused_conv import norm_act_conv3x3
-from edgestyle_tpu_torch.ops.norms import group_norm, layer_norm
+from edgestyle_tpu_torch.ops.norms import cast, group_norm, layer_norm
 from edgestyle_tpu_torch.ops.tome import build_merge
 
 
@@ -56,7 +56,7 @@ def dense(p, x: torch.Tensor, features: int, dtype, use_bias: bool = True) -> to
         return quant.quant_dense(x, w, b, dtype)
     if quant.active() and quant.dense_quantizable(x, features):
         return quant.quant_dense(x, w, b, dtype)
-    return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
+    return F.linear(cast(x, dtype), cast(w, dtype), cast(b, dtype))
 
 
 def conv(p, x: torch.Tensor, features: int, kernel_size: int, dtype, stride: int = 1,
@@ -68,12 +68,12 @@ def conv(p, x: torch.Tensor, features: int, kernel_size: int, dtype, stride: int
     b = param(p, "bias", (features,), "zeros")
     if quant.is_prequant(w) or (quant.active() and quant.conv_quantizable(x, features)):
         return quant.quant_conv(x, w, b, dtype, stride, padding)
-    x = x.to(dtype)
+    x = cast(x, dtype)
     if not isinstance(padding, int):
         top, bottom, left, right = padding
         x = F.pad(x, (left, right, top, bottom))
         padding = 0
-    return F.conv2d(x, w.to(dtype), b.to(dtype), stride=stride, padding=padding)
+    return F.conv2d(x, cast(w, dtype), cast(b, dtype), stride=stride, padding=padding)
 
 
 def pointwise(p, tokens: torch.Tensor, features: int, dtype) -> torch.Tensor:
@@ -85,7 +85,7 @@ def pointwise(p, tokens: torch.Tensor, features: int, dtype) -> torch.Tensor:
     if quant.is_prequant(w) or (
             quant.active() and min(tokens.shape[-1], features) >= quant.MIN_QUANT_CHANNELS):
         return quant.quant_dense(tokens, w, b, dtype)
-    return F.linear(tokens.to(dtype), w.flatten(1).to(dtype), b.to(dtype))
+    return F.linear(cast(tokens, dtype), cast(w.flatten(1), dtype), cast(b, dtype))
 
 
 def to_tokens(x: torch.Tensor) -> torch.Tensor:

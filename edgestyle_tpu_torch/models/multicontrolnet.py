@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from edgestyle_tpu_torch.core.params import param, sub
 from edgestyle_tpu_torch.models.unet import SD15UNet, UNetConfig
-from edgestyle_tpu_torch.ops.norms import moments, use_fast
+from edgestyle_tpu_torch.ops.norms import cast, moments, use_fast
 
 CONTROLNET_PATTERN = (0, None, 1, None, 1, None)
 
@@ -42,10 +42,10 @@ def full_layer_norm(p, x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     scale = param(p, "scale", (c, h, w), "ones", fp32=True).permute(1, 2, 0)
     bias = param(p, "bias", (c, h, w), "zeros", fp32=True).permute(1, 2, 0)
-    xf = x.float()
+    xf = cast(x, torch.float32)
     mean, var = moments(xf, (1, 2, 3), fast=use_fast(x))
     out = (xf - mean) * torch.rsqrt(var + 1e-5) * scale + bias
-    return out.to(x.dtype)
+    return cast(out, x.dtype)
 
 
 def grouped_pointwise(p, x: torch.Tensor, groups: int, in_per_group: int, dtype):
@@ -58,9 +58,10 @@ def grouped_pointwise(p, x: torch.Tensor, groups: int, in_per_group: int, dtype)
     if cin != groups * in_per_group:
         raise ValueError(f"grouped 1x1 expects {groups * in_per_group} input channels "
                          f"({groups} groups x {in_per_group} per group), got {cin}")
-    xr = x.to(dtype).reshape(*x.shape[:3], groups, in_per_group)
-    out = (xr.float() * w.to(dtype).float().view(groups, in_per_group)).sum(-1)
-    return out.to(dtype) + b.to(dtype)
+    f32 = torch.float32
+    xr = cast(x, dtype).reshape(*x.shape[:3], groups, in_per_group)
+    out = (cast(xr, f32) * cast(cast(w, dtype), f32).view(groups, in_per_group)).sum(-1)
+    return cast(out, dtype) + cast(b, dtype)
 
 
 def fusion_block(p, x: torch.Tensor, channels: int, num_nets: int, dtype) -> torch.Tensor:

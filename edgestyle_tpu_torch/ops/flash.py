@@ -16,6 +16,11 @@ v, out, lse) and its backward recomputes P from them, through the kernels
 for CUDA tensors and through the plain versions for CPU tensors. The raw
 kernel wrappers refuse inputs that would record a graph, so no caller can
 cut the graph by calling them directly.
+
+The three launches are operators of ops/library.py (``edgestyle::flash_fwd``,
+``flash_bwd_dq``, ``flash_bwd_dkv``), whose CUDA implementations are the
+wrappers here, looked up when called; :class:`FlashAttention` reaches the
+kernels through them alone, so ``torch.export`` traces each as one node.
 """
 
 from __future__ import annotations
@@ -23,14 +28,16 @@ from __future__ import annotations
 import torch
 
 from edgestyle_tpu_torch import kernels
+from edgestyle_tpu_torch.ops.library import define
+from edgestyle_tpu_torch.ops.norms import F32, cast
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v for (B, H, N, D) tensors, fp32 logits."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    logits = torch.matmul(cast(q, F32), cast(k, F32).transpose(-1, -2))
     probs = torch.softmax(logits * scale, dim=-1)
-    return torch.matmul(probs.to(v.dtype), v)
+    return torch.matmul(cast(probs, v.dtype), v)
 
 
 def flash_attention_reference_lse(q: torch.Tensor, k: torch.Tensor,
@@ -163,18 +170,62 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
     return dk.view(b, h, n, d), dv.view(b, h, n, d)
 
 
+def _fwd_fake(q, k, v, scale):
+    _check_kernel_inputs("flash_fwd", q, k, v)
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _bwd_fake_args(what, q, k, v, dout, lse, delta):
+    _check_kernel_inputs(what, q, k, v, dout)
+    if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
+        raise ValueError(f"{what}: lse and delta must be {tuple(q.shape[:3])}")
+
+
+def _dq_fake(q, k, v, dout, lse, delta, scale):
+    _bwd_fake_args("flash_bwd_dq", q, k, v, dout, lse, delta)
+    return q.new_empty(q.shape)
+
+
+def _dkv_fake(q, k, v, dout, lse, delta, scale):
+    _bwd_fake_args("flash_bwd_dkv", q, k, v, dout, lse, delta)
+    return q.new_empty(q.shape), q.new_empty(q.shape)
+
+
+def _attention_flops(per_head: int):
+    """N^2 D products times ``per_head`` for (B, H, N, D) q."""
+    def flops(q, *args, out_shape=None, **kwargs) -> int:
+        b, h, n, d = q
+        return per_head * b * h * n * n * d
+    return flops
+
+
+# The CUDA implementations look the wrappers up when called, so a caller
+# that swaps a wrapper (chip_smoke's planted faults) swaps the operator's.
+FLASH_FWD = define("flash_fwd", "(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)",
+                   lambda *a: flash_attention_cuda(*a), _fwd_fake, _attention_flops(4))
+FLASH_BWD_DQ = define(
+    "flash_bwd_dq",
+    "(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, float scale) -> Tensor",
+    lambda *a: flash_bwd_dq_cuda(*a), _dq_fake, _attention_flops(6))
+FLASH_BWD_DKV = define(
+    "flash_bwd_dkv",
+    "(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, float scale) "
+    "-> (Tensor, Tensor)",
+    lambda *a: flash_bwd_dkv_cuda(*a), _dkv_fake, _attention_flops(8))
+
+
 def flash_attention_backward_cuda(q, k, v, out, lse, dout, scale: float):
-    """(dq, dk, dv), bf16, through the two backward kernels, from the
+    """(dq, dk, dv), bf16, through the two backward operators, from the
     forward's output and lse."""
     delta = flash_bwd_delta(out, dout)
-    return (flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale),
-            *flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale))
+    return (FLASH_BWD_DQ(q, k, v, dout, lse, delta, scale),
+            *FLASH_BWD_DKV(q, k, v, dout, lse, delta, scale))
 
 
 class FlashAttention(torch.autograd.Function):
     """The flash_attention custom VJP. On CUDA tensors the forward and
-    backward launch the kernels; on CPU tensors they run the plain versions
-    of the same two functions. The kernels multiply bf16 operands, so on
+    backward launch the kernels through their operators; on CPU tensors
+    they run the plain versions of the same two functions. The kernels multiply bf16 operands, so on
     the card q, k, v of another type (an fp32 model's) are rounded to bf16
     on the way in, as is dO; logits, softmax and sums stay fp32, and the
     output and the gradients are returned in the inputs' types."""
@@ -184,10 +235,10 @@ class FlashAttention(torch.autograd.Function):
         ctx.dtypes = (q.dtype, k.dtype, v.dtype)
         ctx.scale = scale
         if q.is_cuda:
-            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-            out, lse = flash_attention_cuda(q, k, v, scale)
+            q, k, v = (cast(t, torch.bfloat16) for t in (q, k, v))
+            out, lse = FLASH_FWD(q, k, v, scale)
             ctx.save_for_backward(q, k, v, out, lse)
-            return out.to(ctx.dtypes[0])
+            return cast(out, ctx.dtypes[0])
         out = flash_attention_reference(q, k, v, scale)
         lse = flash_attention_reference_lse(q, k, scale)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -24,6 +24,13 @@ the plain version otherwise (CPU tensors, fp32 models); its backward recomputes
 the plain version and returns its vjp, as ``_fused_bwd`` does (the JAX
 package has no backward kernel for it). The raw wrappers refuse inputs that
 would record a graph.
+
+The two launches are operators of ops/library.py
+(``edgestyle::gn_scale_shift`` and ``edgestyle::fused_gn_silu_conv3x3``),
+whose CUDA implementations are the wrappers here; :func:`fused_route`
+reaches the kernels through them alone, so ``torch.export`` traces each as
+one node. The conv's fake implementation gives its output channels_last
+strides, as the kernel writes it.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch.nn.functional as F
 
 from edgestyle_tpu_torch import kernels
 from edgestyle_tpu_torch.ops import quant
-from edgestyle_tpu_torch.ops.norms import group_norm, group_norm_stats
+from edgestyle_tpu_torch.ops.library import define
+from edgestyle_tpu_torch.ops.norms import cast, group_norm, group_norm_stats
 
 SMS = 132  # streaming multiprocessors of the H100 SXM
 # The conv kernel's tiles: a block owns TILE_H x TILE_W output pixels of one
@@ -117,12 +125,25 @@ def gn_scale_shift_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
     return s, t
 
 
+def _gn_fake(x, gamma, beta, num_groups, eps):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the GN statistics kernel takes bf16 or fp32 x, got {x.dtype}")
+    b, c = x.shape[:2]
+    return x.new_empty((b, c), dtype=torch.float32), x.new_empty((b, c), dtype=torch.float32)
+
+
+GN_SCALE_SHIFT = define(
+    "gn_scale_shift", "(Tensor x, Tensor gamma, Tensor beta, int num_groups, float eps) "
+    "-> (Tensor, Tensor)", lambda *a: gn_scale_shift_cuda(*a), _gn_fake,
+    lambda *a, **k: 0)
+
+
 def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    num_groups: int, eps: float):
-    """fp32 (B, C) GroupNorm scale/shift: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """fp32 (B, C) GroupNorm scale/shift: the kernel's operator for CUDA
+    tensors, the plain version for CPU tensors."""
     if x.is_cuda:
-        return gn_scale_shift_cuda(x, gamma, beta, num_groups, eps)
+        return GN_SCALE_SHIFT(x, gamma, beta, num_groups, eps)
     return gn_scale_shift_reference(x, gamma, beta, num_groups, eps)
 
 
@@ -206,11 +227,34 @@ def fused_gn_silu_conv3x3(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
     return out
 
 
+def _conv_fake(x, s, t, weight, bias):
+    if x.dtype not in (torch.bfloat16, torch.float32) or weight.dtype != torch.bfloat16:
+        raise TypeError(f"the fused conv kernel takes bf16 or fp32 x and bf16 weight, got "
+                        f"{x.dtype} and {weight.dtype}")
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} is not ({cout}, {cin}, 3, 3)")
+    return torch.empty((b, cout, h, w), device=x.device, dtype=torch.bfloat16,
+                       memory_format=torch.channels_last)
+
+
+def _conv_flops(x, s, t, weight, *args, out_shape=None, **kwargs) -> int:
+    b, cin, h, w = x
+    return 2 * b * h * w * cin * weight[0] * 9
+
+
+FUSED_GN_SILU_CONV3X3 = define(
+    "fused_gn_silu_conv3x3", "(Tensor x, Tensor s, Tensor t, Tensor weight, Tensor bias) "
+    "-> Tensor", lambda *a: fused_gn_silu_conv3x3(*a), _conv_fake, _conv_flops)
+
+
 def fused_route(x, gamma, beta, weight, bias, num_groups: int, eps: float,
-                conv=fused_gn_silu_conv3x3):
+                conv=FUSED_GN_SILU_CONV3X3):
     """The card's route of the op: the GN scale/shift, then ``conv`` (the
-    kernel; a test passes its plain version) on x in its own type. Nothing
-    is cast on the way: an fp32 x is normalised from its fp32 values."""
+    kernel's operator; a test passes its plain version) on x in its own
+    type. Nothing is cast on the way: an fp32 x is normalised from its fp32
+    values."""
     s, t = gn_scale_shift(x, gamma, beta, num_groups, eps)
     return conv(x, s, t, weight, bias)
 
@@ -243,7 +287,7 @@ class NormActConv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, weight, bias, num_groups, eps, dtype):
         if takes_kernels(x, weight):
-            out = fused_route(x, gamma, beta, weight, bias, num_groups, eps).to(dtype)
+            out = cast(fused_route(x, gamma, beta, weight, bias, num_groups, eps), dtype)
         else:
             out = norm_act_conv3x3_reference(x, gamma, beta, weight, bias, num_groups, eps,
                                              dtype)

@@ -10,7 +10,18 @@ NHWC view, as the JAX package groups its trailing channel axis.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+F32 = torch.float32
+
+
+def cast(x: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """``x.to(dtype)``, or x itself where it has that type already: an
+    exported graph (core/export.py) keeps every ``.to`` call as two nodes,
+    a no-op one too, and each node costs trace, save and load time."""
+    return x if x is None or x.dtype == dtype else x.to(dtype)
 
 
 def moments(xf: torch.Tensor, dims, fast: bool):
@@ -34,7 +45,7 @@ def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float):
     b, c = x.shape[:2]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    xf = x.float().permute(0, 2, 3, 1).reshape(b, -1, num_groups, c // num_groups)
+    xf = cast(x, F32).permute(0, 2, 3, 1).reshape(b, -1, num_groups, c // num_groups)
     mean, var = moments(xf, (1, 3), fast=use_fast(x))
     return mean.reshape(b, num_groups), torch.rsqrt(var + eps).reshape(b, num_groups)
 
@@ -46,19 +57,19 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     b, c = x.shape[:2]
     mean, rstd = group_norm_stats(x, num_groups, eps)
     per = c // num_groups
-    xf = x.float().permute(0, 2, 3, 1).reshape(b, -1, num_groups, per)
+    xf = cast(x, F32).permute(0, 2, 3, 1).reshape(b, -1, num_groups, per)
     xf = (xf - mean[:, None, :, None]) * rstd[:, None, :, None]
-    out = xf.reshape(b, x.shape[2], x.shape[3], c) * scale.float() + bias.float()
+    out = xf.reshape(b, x.shape[2], x.shape[3], c) * cast(scale, F32) + cast(bias, F32)
     if act is not None:
         out = act(out)
-    return out.to(x.dtype).permute(0, 3, 1, 2)
+    return cast(out, x.dtype).permute(0, 3, 1, 2)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the trailing axis, fp32 statistics, x's dtype out."""
-    xf = x.float()
+    xf = cast(x, F32)
     mean, var = moments(xf, -1, fast=use_fast(x))
     out = (xf - mean) * torch.rsqrt(var + eps)
-    out = out * scale.float() + bias.float()
-    return out.to(x.dtype)
+    out = out * cast(scale, F32) + cast(bias, F32)
+    return cast(out, x.dtype)

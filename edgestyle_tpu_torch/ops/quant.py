@@ -126,7 +126,8 @@ def _static_scale(key: str, device: torch.device) -> torch.Tensor:
     s = made.get((key, device))
     if s is None:
         s = torch.full((), float(_STATIC_SCALES[key]), dtype=torch.float32, device=device)
-        made[(key, device)] = s
+        if type(s) is torch.Tensor:  # not a tracer's tensor (an export's), which dies with it
+            made[(key, device)] = s
     return s
 
 

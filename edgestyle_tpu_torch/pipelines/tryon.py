@@ -93,6 +93,14 @@ class PipelineConfig:
         return tuple(p for p, pid in enumerate(self.pattern) if pid is not None)
 
 
+def _timesteps(t, rows: int, device) -> torch.Tensor:
+    """(rows,) long timesteps from a host int (the live loop's) or a 0-d
+    tensor (the input of an exported denoise step, apps/export.py)."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device, torch.long).reshape(1).expand(rows)
+    return torch.full((rows,), t, dtype=torch.long, device=device)
+
+
 def _version(leaf) -> Optional[int]:
     """A tensor's in-place write counter; None for a leaf without one (an
     inference-mode tensor, a non-tensor)."""
@@ -222,7 +230,7 @@ class EdgeStylePipeline:
         ``cfg_interval``) only the conditional half runs, at B rows."""
         dev = sample.device
         if not use_cfg or guess_mode:
-            tb = torch.full((b,), t, dtype=torch.long, device=dev)
+            tb = _timesteps(t, b, dev)
             down, mid = self.mcn(params["controlnet"], sample, tb, context[b:], embs, scales_i,
                                  guess_mode=guess_mode)
             if not use_cfg:
@@ -230,7 +238,7 @@ class EdgeStylePipeline:
             down = tuple(torch.cat([torch.zeros_like(d), d], dim=0) for d in down)
             return down, torch.cat([torch.zeros_like(mid), mid], dim=0)
         x2 = torch.cat([sample, sample], dim=0)
-        t2 = torch.full((2 * b,), t, dtype=torch.long, device=dev)
+        t2 = _timesteps(t, 2 * b, dev)
         return self.mcn(params["controlnet"], x2, t2, context, embs2, scales_i)
 
     def _eval_step(self, use_cfg: bool, params, context, embs, embs2, scales_i, g, b,
@@ -268,7 +276,7 @@ class EdgeStylePipeline:
         dev = sample.device
         rows = 2 * b if use_cfg else b
         x2 = torch.cat([sample, sample], dim=0) if use_cfg else sample
-        t2 = torch.full((rows,), t, dtype=torch.long, device=dev)
+        t2 = _timesteps(t, rows, dev)
         ctx = context if use_cfg else context[b:]
         if cache is not None and "deep" in cache:
             if refresh_deep:
@@ -291,7 +299,8 @@ class EdgeStylePipeline:
 
     def _generate(self, params, prompt_ids, negative_prompt_ids, cond_images, generator,
                   num_inference_steps: int, guidance_scale, scales: np.ndarray, latents,
-                  guess_mode: bool, cfg_on=None, cn_sched=None, deep_sched=None):
+                  guess_mode: bool, cfg_on=None, cn_sched=None, deep_sched=None,
+                  lcm_noise=None):
         """``cfg_on``: None (CFG every step, the exact program), "off" (no
         step) or a (steps,) host bool mask; ``cn_sched`` / ``deep_sched``:
         None (no cache) or (steps,) host bool refresh masks, True at step 0
@@ -318,10 +327,10 @@ class EdgeStylePipeline:
         if isinstance(self.scheduler, LCMScheduler):
             # the re-noise continues the latents' generator (or a fresh one
             # from seed 0, as the JAX pipeline's default key)
-            if generator is None:
+            if generator is None and lcm_noise is None:
                 generator = torch.Generator(device=dev)
                 generator.manual_seed(0)
-            plan = self.scheduler.plan(num_inference_steps, generator)
+            plan = self.scheduler.plan(num_inference_steps, generator, noise=lcm_noise)
         else:
             plan = self.scheduler.plan(num_inference_steps)
         latents = latents.to(dev, torch.float32).contiguous(memory_format=torch.channels_last)
@@ -367,7 +376,7 @@ class EdgeStylePipeline:
                  latents: Optional[torch.Tensor] = None, guess_mode: bool = False, control_guidance_start=0.0,
                  control_guidance_end=1.0, controlnet_cache_interval: int = 1,
                  unet_cache_interval: int = 1, cfg_interval=(0.0, 1.0),
-                 controlnet_cache_steps=None, unet_cache_steps=None):
+                 controlnet_cache_steps=None, unet_cache_steps=None, lcm_noise=None):
         """Generate try-on images (B, 3, H, W) in [0, 1]. Defaults follow the reference app: 20 steps, guidance
         3.5. ``guidance_scale`` is a scalar or (B,); the control guidance
         window becomes a per-step keep mask folded into the per-branch
@@ -383,7 +392,13 @@ class EdgeStylePipeline:
         applies CFG only on the steps i with i/N >= start and (i+1)/N <= end
         and runs the others at B rows on the conditional context (an empty
         window, canonically (0, 0), turns CFG off). 1, None and (0, 1) are
-        the exact program."""
+        the exact program.
+
+        ``guidance_scale`` may also be a tensor (a generate program's input,
+        apps/export.py), and ``lcm_noise`` the LCM sampler's re-noise of
+        every step but the last (``num_inference_steps - 1`` latents-shaped
+        tensors), which is otherwise drawn from ``generator`` after the
+        latents."""
         cfg_on, cn_sched, deep_sched = self._schedules(
             num_inference_steps, controlnet_cache_interval, unet_cache_interval, cfg_interval,
             controlnet_cache_steps, unet_cache_steps)
@@ -396,16 +411,18 @@ class EdgeStylePipeline:
                            num_inference_steps, latents)
         scales = self._step_scales(num_inference_steps, conditioning_scale,
                                    control_guidance_start, control_guidance_end)
-        g = np.asarray(guidance_scale, np.float32)
+        g = (guidance_scale if isinstance(guidance_scale, torch.Tensor)
+             else np.asarray(guidance_scale, np.float32))
         if g.ndim not in (0, 1) or (g.ndim == 1 and g.shape[0] != prompt_ids.shape[0]):
-            raise ValueError(f"guidance_scale must be a scalar or (B,), got {g.shape} "
+            raise ValueError(f"guidance_scale must be a scalar or (B,), got {tuple(g.shape)} "
                              f"for B={prompt_ids.shape[0]}")
         if self.quant == "int8-static" and self._int8_scales is None:
             # lazy calibration on the first request's own inputs
             self.calibrate_int8(params, prompt_ids, negative_prompt_ids, cond_images)
         return self._generate(params, prompt_ids, negative_prompt_ids, cond_images, generator,
                               num_inference_steps, g, scales, latents, guess_mode,
-                              cfg_on=cfg_on, cn_sched=cn_sched, deep_sched=deep_sched)
+                              cfg_on=cfg_on, cn_sched=cn_sched, deep_sched=deep_sched,
+                              lcm_noise=lcm_noise)
 
     @staticmethod
     def _schedules(num_steps: int, controlnet_cache_interval, unet_cache_interval,

@@ -8,16 +8,17 @@ consistency estimate of x0 at its source timestep and re-noises it to the
 next grid point; the last step returns the estimate and draws nothing.
 
 The plan is host numpy plus the ``torch.Generator`` the re-noise is drawn
-from (the JAX plan carries a key instead, folded with the step index).
-:meth:`LCMScheduler.step` also takes the noise as an argument, so a caller
-can feed in any draw. LCM sampling is guidance-free: pair it with
-``cfg_interval=(0.0, 0.0)``.
+from (the JAX plan carries a key instead, folded with the step index), or
+the re-noise itself, drawn by the caller (an exported generate program
+takes it as an input). :meth:`LCMScheduler.step` also takes the noise as
+an argument, so a caller can feed in any draw. LCM sampling is
+guidance-free: pair it with ``cfg_interval=(0.0, 0.0)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ class LCMPlan:
     c_skip: np.ndarray   # the consistency boundary scalings at the source
     c_out: np.ndarray
     generator: Optional[torch.Generator]
+    noise: Optional[Sequence[torch.Tensor]] = None  # steps 0..N-2's re-noise, else drawn
 
     @property
     def num_steps(self) -> int:
@@ -69,10 +71,14 @@ class LCMScheduler(SampleLoop):
                                    endpoint=False)).astype(np.int64)
         return origin[::-1][idx]
 
-    def plan(self, num_inference_steps: int,
-             generator: Optional[torch.Generator] = None) -> LCMPlan:
-        """``generator`` draws the re-noise of every step but the last; a
-        one-step plan needs none."""
+    def plan(self, num_inference_steps: int, generator: Optional[torch.Generator] = None,
+             noise: Optional[Sequence[torch.Tensor]] = None) -> LCMPlan:
+        """``generator`` draws the re-noise of every step but the last, unless
+        ``noise`` gives it (``num_inference_steps - 1`` tensors); a one-step
+        plan needs neither."""
+        if noise is not None and len(noise) != num_inference_steps - 1:
+            raise ValueError(f"{num_inference_steps} LCM steps re-noise {num_inference_steps - 1} "
+                             f"times, got {len(noise)} noise tensors")
         ac = np.asarray(self.sched.alphas_cumprod, dtype=np.float64)
         ts = self.timestep_grid(num_inference_steps)
         prev = np.concatenate([ts[1:], [ts[-1]]])
@@ -83,7 +89,8 @@ class LCMScheduler(SampleLoop):
             timesteps=ts.astype(np.int32), alpha_s=f32(np.sqrt(ac[ts])),
             sigma_s=f32(np.sqrt(1.0 - ac[ts])), alpha_p=f32(np.sqrt(ac[prev])),
             sigma_p=f32(np.sqrt(1.0 - ac[prev])), c_skip=f32(sd2 / (st ** 2 + sd2)),
-            c_out=f32(st / np.sqrt(st ** 2 + sd2)), generator=generator)
+            c_out=f32(st / np.sqrt(st ** 2 + sd2)), generator=generator,
+            noise=None if noise is None else list(noise))
 
     def init_state(self, sample: torch.Tensor) -> Dict:
         return {}
@@ -103,6 +110,8 @@ class LCMScheduler(SampleLoop):
         denoised = float(plan.c_out[i]) * x0 + float(plan.c_skip[i]) * sample_f32
         if i == plan.num_steps - 1:
             return denoised.to(sample.dtype), state
+        if noise is None and plan.noise is not None:
+            noise = plan.noise[i]
         if noise is None:
             if plan.generator is None:
                 raise ValueError("an LCM plan of more than one step needs a generator "

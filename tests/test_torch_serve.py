@@ -458,3 +458,122 @@ def test_int8_scales_flag_loads_the_table_into_the_pipeline(tmp_path, monkeypatc
     with pytest.raises(ValueError, match="not an int8 scale table"):
         tryon.TryOnSystem(args=serve.parse_args(["--random_init", "--int8_scales", str(path)]),
                           device="cpu", pipe=pipe, gen_params={})
+
+
+# ------------------------------------------------- --exported_dir (artifacts)
+ART_ARGV = ["--subject", "s", "--clothes1", "a", "--clothes2", "b", "--random_init"]
+
+
+class _Built(Exception):
+    """Stops JAX's TryOnSystem.__init__ once its artifact is built, before
+    its full-width JAX init."""
+
+
+@pytest.fixture
+def stub_artifacts(monkeypatch):
+    """Both packages' ArtifactPipeline stubbed: each records the directory
+    and scheduler it is built with and every call (the port's cond images
+    moved to NHWC). JAX's raises _Built once made. Returns {"jax": [...],
+    "port": [...]} of ("made", dir, scheduler) and ("call", record)."""
+    from edgestyle_tpu.pipelines import artifact as jartifact
+
+    log = {"jax": [], "port": []}
+
+    class JStub:
+        def __init__(self, artifact_dir, scheduler="unipc"):
+            log["jax"].append(("made", artifact_dir, scheduler))
+            raise _Built
+
+    class Stub:
+        latent_shape = (1, 4, 16, 16)
+
+        def __init__(self, artifact_dir, scheduler="unipc", device="cuda"):
+            log["port"].append(("made", artifact_dir, scheduler))
+
+        def __call__(self, params, ids, neg, cond, generator=None, latents=None, **kw):
+            log["port"].append(("call", {
+                "cond": [c.numpy().transpose(0, 2, 3, 1) for c in cond], "ids": np.asarray(ids),
+                "latents": latents.numpy().transpose(0, 2, 3, 1),
+                "seed": generator.initial_seed(), **kw}))
+            b, _, h, w = cond[0].shape
+            return torch.zeros((b, 3, h, w))
+
+    monkeypatch.setattr(jartifact, "ArtifactPipeline", JStub)
+    monkeypatch.setattr(tryon, "ArtifactPipeline", Stub)
+    return log
+
+
+def _port_system(argv):
+    args = tryon.apply_serving_mode(tryon.parse_args(argv))
+    pipe = EdgeStylePipeline(dataclasses.replace(TINY_PIPE, scheduler=args.scheduler),
+                             device="cpu", tome=args.tome)
+    return tryon.TryOnSystem(args=args, device="cpu", pipe=pipe, gen_params={})
+
+
+@pytest.mark.parametrize("flags", [[], ["--scheduler", "dpm++"]])
+def test_exported_dir_builds_an_artifact_pipeline(stub_artifacts, tmp_path, flags):
+    """With --exported_dir both packages' TryOnSystem build an
+    ArtifactPipeline of the directory with the CLI's scheduler; the port's
+    generates one request through it (the same cond images, ids, seed's
+    latents and steps as its live path hands the pipeline), and refuses
+    generate_batch with JAX's ValueError."""
+    from edgestyle_tpu.apps import tryon as japp
+
+    argv = ART_ARGV + ["--exported_dir", str(tmp_path)] + flags
+    with pytest.raises(_Built):
+        japp.TryOnSystem(args=japp.parse_args(argv))
+    system = _port_system(argv)
+    assert stub_artifacts["port"] == stub_artifacts["jax"] == [
+        ("made", str(tmp_path), "dpm++" if flags else "unipc")]
+    rng = np.random.default_rng(5)
+    cond = {k: rng.random((32, 32, 3)).astype(np.float32) for k in COND_KEYS}
+    ids = rng.integers(1, 99, (1, 7))
+    out = system.generate(cond, ids, ids, steps=6, guidance=4.5, seed=7)
+    assert out.shape == (32, 32, 3)
+    (_, call), = stub_artifacts["port"][1:]
+    assert call["seed"] == 7 and call["num_inference_steps"] == 6
+    assert call["guidance_scale"] == 4.5 and call["latents"].shape == (1, 16, 16, 4)
+    draw = torch.randn((1, 4, 16, 16), generator=make_generator(7, "cpu"))
+    np.testing.assert_array_equal(call["latents"][0], draw.numpy()[0].transpose(1, 2, 0))
+    np.testing.assert_array_equal(call["cond"][0][0], cond["agnostic"] * 2 - 1)
+    jsys = japp.TryOnSystem.__new__(japp.TryOnSystem)
+    jsys.pipe, jsys._live_pipe = object(), object()
+    with pytest.raises(ValueError) as jerr:
+        jsys.generate_batch([cond], ids, ids, seeds=(7,))
+    with pytest.raises(ValueError) as err:
+        system.generate_batch([cond], ids, ids, seeds=(7,))
+    assert str(err.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("flags", [["--controlnet_cache_interval", "2"], ["--mode", "turbo"],
+                                   ["--cfg_interval", "0", "0.5"], ["--tome", "0.5"]])
+def test_knob_on_a_per_stage_artifact_raises_like_jax(stub_artifacts, tmp_path, flags):
+    """A serving knob with a per-stage artifact directory (no generate
+    program) raises JAX's ValueError before any artifact is loaded; beside
+    a generate program the artifact is built and checks the knobs itself."""
+    from edgestyle_tpu.apps import tryon as japp
+
+    argv = ART_ARGV + ["--exported_dir", str(tmp_path)] + flags
+    with pytest.raises(ValueError) as jerr:
+        japp.TryOnSystem(args=japp.parse_args(argv))
+    with pytest.raises(ValueError) as err:
+        _port_system(argv)
+    assert str(err.value) == str(jerr.value)
+    assert stub_artifacts == {"jax": [], "port": []}
+    (tmp_path / "generate.stablehlo").write_bytes(b"")
+    (tmp_path / "generate.pt2").write_bytes(b"")
+    with pytest.raises(_Built):
+        japp.TryOnSystem(args=japp.parse_args(argv))
+    _port_system(argv)
+    assert stub_artifacts["port"] == stub_artifacts["jax"]
+
+
+def test_serve_max_batch_with_exported_dir_exits_like_jax(tmp_path):
+    """serve --max_batch 2 --exported_dir exits with JAX's message before
+    anything is built."""
+    argv = ["--random_init", "--max_batch", "2", "--exported_dir", str(tmp_path)]
+    with pytest.raises(SystemExit) as jerr:
+        jserve.main(argv)
+    with pytest.raises(SystemExit) as err:
+        serve.main(argv, device="cpu")
+    assert str(err.value) == str(jerr.value) and "single-request" in str(err.value)

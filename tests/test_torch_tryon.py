@@ -161,19 +161,42 @@ def test_load_image_512_pads_nonsquare(tmp_path):
 REQUIRED = ["--subject", "s.png", "--clothes1", "a.png", "--clothes2", "b.png", "--random_init"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    # --int8_scales is ported (the case keeps the id it had when the flag was
-    # refused): beside it, --exported_dir is the flag refused
-    pytest.param(["--int8_scales", "s.json", "--exported_dir", "art"], "item 15",
-                 id="flags0-item 12"),
-    # --clip_model is ported (prompt mining): beside it, --exported_dir is
-    # the flag refused
-    (["--clip_model", "clip", "--exported_dir", "art"], "item 15"),
-    (["--exported_dir", "art"], "item 15"),
+@pytest.mark.parametrize("flags", [
+    # the ids are those the cases had while --exported_dir was refused; beside
+    # a missing artifact directory, --int8_scales and --clip_model change
+    # nothing: the artifact is looked for first
+    pytest.param(["--int8_scales", "s.json", "--exported_dir", "art"], id="flags0-item 12"),
+    pytest.param(["--clip_model", "clip", "--exported_dir", "art"], id="flags1-item 15"),
+    pytest.param(["--exported_dir", "art"], id="flags2-item 15"),
 ])
-def test_unported_flags_raise_naming_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_flags_raise_naming_their_item(flags, tmp_path):
+    """--exported_dir is ported: a directory without the artifacts raises
+    JAX's FileNotFoundError, which names the export to run, before any
+    weight is made."""
+    from edgestyle_tpu.pipelines.artifact import ArtifactPipeline as JArtifactPipeline
+
+    flags = [str(tmp_path / f) if f == "art" else f for f in flags]
+    with pytest.raises(FileNotFoundError, match="what all") as jerr:
+        JArtifactPipeline(str(tmp_path / "art"))
+    with pytest.raises(FileNotFoundError, match="what all") as err:
         tryon.main(REQUIRED + flags, device="cpu")
+    assert str(err.value) == str(jerr.value).replace(".stablehlo", ".pt2")
+
+
+def assert_parsed_like_jax(flags):
+    """The try-on parser gives each flag's dest JAX's value, after both
+    packages' serving-mode folding."""
+    from edgestyle_tpu.apps import tryon as japp
+
+    jargs = japp.apply_serving_mode(japp.parse_args(REQUIRED + flags))
+    args = tryon.apply_serving_mode(tryon.parse_args(REQUIRED + flags))
+    norm = lambda v: tuple(v) if isinstance(v, (list, tuple)) else v  # noqa: E731
+    for flag in (f for f in flags if f.startswith("--")):
+        dest = flag[2:]
+        assert norm(getattr(args, dest)) == norm(getattr(jargs, dest)), flag
+    for dest in ("controlnet_cache_interval", "unet_cache_interval", "controlnet_cache_steps",
+                 "unet_cache_steps", "cfg_interval", "tome", "scheduler", "steps"):
+        assert norm(getattr(args, dest)) == norm(getattr(jargs, dest)), dest
 
 
 @pytest.mark.parametrize("flags", [
@@ -184,8 +207,8 @@ def test_unported_flags_raise_naming_their_item(flags, item):
 ])
 def test_serving_flags_are_ported(flags):
     """The serving knobs, their presets, both samplers and the LCM-LoRA
-    flag ask for nothing unported."""
-    tryon.refuse_unported(tryon.parse_args(REQUIRED + flags))
+    flag parse to JAX's values."""
+    assert_parsed_like_jax(flags)
 
 
 @pytest.mark.parametrize("flags", [
@@ -194,8 +217,8 @@ def test_serving_flags_are_ported(flags):
     ["--bodypose_checkpoint", "pose.safetensors"],
 ])
 def test_weight_flags_are_ported(flags):
-    """The checkpoint loaders' flags ask for nothing unported."""
-    tryon.refuse_unported(tryon.parse_args(REQUIRED + flags))
+    """The checkpoint loaders' flags parse to JAX's values."""
+    assert_parsed_like_jax(flags)
 
 
 def _save_both(tmp_path, name, sd):
@@ -245,10 +268,11 @@ def test_safetensors_checkpoints_load_as_pt(tmp_path, model):
 
 
 def test_exact_values_of_the_knobs_are_accepted():
-    args = tryon.parse_args(REQUIRED + ["--mode", "exact", "--tome", "0", "--scheduler", "unipc",
-                                        "--cfg_interval", "0", "1",
-                                        "--controlnet_cache_interval", "1"])
-    tryon.refuse_unported(args)
+    flags = ["--mode", "exact", "--tome", "0", "--scheduler", "unipc", "--cfg_interval", "0",
+             "1", "--controlnet_cache_interval", "1"]
+    assert_parsed_like_jax(flags)
+    assert tryon.serving_kwargs(tryon.apply_serving_mode(
+        tryon.parse_args(REQUIRED + flags))) == {}
 
 
 def test_sam_checkpoint_layouts_load(tmp_path):
