@@ -216,7 +216,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
      weights' predicted IoU means nothing): the top 2 of 6 frames written
      with all eight artifacts, ``find_missing_artifacts`` empty, ``curation.main
      bad`` at full width on the result; seconds per frame split into pose,
-     SAM and IQA; no hand-written kernel; an ``{"extract": ...}`` line.
+     SAM and IQA; no hand-written kernel; an ``{"extract": ...}`` line;
+  19. multicard (``multicard_phase``): several cards on this one. (a) an
+     NCCL group of one rank on cuda:0: ``generate_dp`` (full width, bf16,
+     B=2, MC_STEPS UniPC steps) and one data-parallel train step
+     (micro-batch 2) each equal to the single-process call bit for bit;
+     (b) two processes that both name cuda:0 and ``gloo``: ``generate_dp``
+     at B=2 (a row a rank) against (a)'s single-process images,
+     ``generate_tp`` at model=2, B=1, against the single-process B=1 image,
+     one data-parallel train step at a global micro-batch of 2 against the
+     single-process step (loss, d, each group's gradient and update as
+     relative L2; bf16 from the trainer's initial state and with live
+     adapters, fp32 with live adapters),
+     each rank's launches of the five kernels against the prediction and
+     its TP all-reduces against the count the code predicts
+     (``tp_all_reduces``); per rank the seconds (two ranks share the card:
+     not a speed-up), all-reduces and bytes; a ``{"multicard": ...}``
+     line. A failure in either rank fails the phase.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -891,7 +907,7 @@ SERVING_RUNS = {
     "lcm": (["--mode", "lcm"], 4, (0, 1, 2, 3), (0, 1, 2, 3)),
     "tome_0.3_off_grid": (["--tome", "0.3"], SERVING_STEPS, ALL, ALL),
 }
-SERVING_TIMED = 2
+SERVING_TIMED = 1
 LCM_LORA_RANK = 64
 # A cfg_interval (0, 0) generation (B rows, conditional context) against
 # guidance 1.0 (2B rows, uncond + 1 * (cond - uncond)): the same function,
@@ -4410,6 +4426,306 @@ def extract_phase(dev, card: str, clip_files: dict):
     return rec["launches"]
 
 
+# ------------------------------------------------------------- multicard
+# Several cards on the one card of this machine. (a) an NCCL group of one
+# rank on cuda:0: generate_dp and a data-parallel train step, each against
+# the single-process call on the same inputs, bit for bit (one rank runs
+# the same call on every row; the all-reduce of one rank returns its
+# input). (b) two ranks that both name cuda:0 and gloo (NCCL refuses two
+# ranks on one device): generate_dp at B=2 (one row a rank) against (a)'s
+# single-process images, generate_tp at model=2, B=1, against the
+# single-process B=1 image, and one data-parallel train step at a global
+# micro-batch of 2 against (a)'s single-process step.
+MC_STEPS = 4
+MC_LATENT_SEED, MC_REQUEST_SEED, MC_DRAW_SEED = 5, 17, 9
+# The DP train step against the single-process step, --adam_epsilon 1
+# (tests/test_torch_multicard.py's conditioning: Prodigy's first step is
+# ~d sign(g) at eps 1e-8, so an element whose gradient is near roundoff
+# takes either sign on either side; above every |g| the update follows g),
+# the loss and d relative, each group's gradient (Prodigy's first exp_avg,
+# (1 - beta1) d g) and update (after - before) as relative L2, in three
+# runs:
+#   "bf16": the trainer's own step from its initial state (zero-init heads,
+#     so the adapters get no gradient yet): the loss and d within
+#     MC_LOSS_TOL, gradients and updates within GRAD_TOL (the ranks' B=1
+#     rows run other cuBLAS / cuDNN algorithms than the single process's
+#     B=2, as the kernels' and the plain versions' roundings differ there);
+#   "bf16_live": live trainables (grad_check_phase's _live_trainables),
+#     every adapter's gradient live: gradients within GRAD_TOL; the updates
+#     are read, not held: Prodigy's first step at d = 1e-6 moves a nonzero
+#     weight by less than its ulp, so after - before is mostly rounding;
+#   "fp32": --mixed_precision no, live: B=1 and B=2 round alike to ~1e-6,
+#     so the gradients are held at MC_FP32_TOL (the loss and d too).
+MC_TRAIN_ARGV = ["--random_init", "--resolution", "512", "--train_batch_size", "2",
+                 "--gradient_accumulation_steps", "1", "--seed", "0", "--adam_epsilon", "1"]
+MC_TRAIN_RUNS = {"bf16": ("bf16", False), "bf16_live": ("bf16", True), "fp32": ("no", True)}
+# (b) against the single-process path, uint8 levels of the [0, 1] images:
+# the DP rows run at B=1 where the single process ran B=2 (other cuBLAS /
+# cuDNN algorithms, other split counts of the fused conv: the bf16 sums
+# round apart), and under TP each row-parallel Dense sums two bf16 partial
+# products; both as the server's coalesced-vs-alone check (SERVE_MEAN_TOL,
+# SERVE_MAX_TOL, over 20 steps there, MC_STEPS here).
+MC_LOSS_TOL = 1e-2
+MC_FP32_TOL = 1e-3
+
+
+def tp_all_reduces(pipe, params, steps: int) -> int:
+    """The all-reduces of one generate_tp call, from the code: 3 a
+    transformer block (to_out of attn1 and attn2, ff.proj_out) in every
+    model evaluation (the UNet and one trunk call a branch group, one
+    evaluation a UniPC step), and 1 a CLIP layer (fc2) in the one prompt
+    encode; the VAE's single-head attention stays whole."""
+    from edgestyle_tpu_torch.core.params import flatten
+
+    def blocks(tree):
+        return sum(1 for k in flatten(tree) if k[-3:] == ("attn1", "to_q", "kernel"))
+
+    trunk = blocks(params["controlnet"]["static"])
+    return (3 * steps * (blocks(params["unet"]) + len(pipe.mcn.groups) * trunk)
+            + pipe.cfg.clip.num_layers)
+
+
+def _mc_request(pipe, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MC_REQUEST_SEED)
+    ids, neg, imgs, _ = make_request(gen, dev, 2, pipe.cfg.num_branches,
+                                     pipe.cfg.latent_branches)
+    return ids, neg, imgs
+
+
+def _mc_train_step(dev, mesh, run: str) -> dict:
+    """One train step of MC_TRAIN_RUNS[run] from the trainer's full-width
+    build: one global synthetic batch and its draws, this rank's rows of
+    both with ``mesh`` (the DP step), all of both without. Returns the
+    loss, d, the trainables before and after on the host, the seconds, the
+    launches and the bytes all-reduced."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.apps import train
+    from edgestyle_tpu_torch.core import mesh as M
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.training.train_step import (
+        make_optimizer,
+        make_train_step,
+        sample_draws,
+    )
+
+    precision, live = MC_TRAIN_RUNS[run]
+    args = train.parse_args(MC_TRAIN_ARGV + ["--mixed_precision", precision])
+    pipe, frozen, tcfg, state, _ = train.build(args, dev)
+    if live:
+        trainable = _live_trainables(state, make_generator(MC_DRAW_SEED + 1, dev))
+        state = {"trainable": trainable, "opt_state": make_optimizer(tcfg).init(trainable),
+                 "step": 0}
+    host = next(train.synthetic_loader(args))
+    batch, draws = train.rank_batch(
+        mesh, host, sample_draws(pipe, tcfg, host, make_generator(MC_DRAW_SEED, dev)))
+    step = make_train_step(pipe, tcfg, data_group=None if mesh is None
+                           else mesh.get_group(M.DATA_AXIS))
+    kernels.reset_launches()
+    M.ALL_REDUCE_BYTES[0] = 0
+    secs, (new, metrics) = _wall(lambda: step(state, frozen, batch, draws), 1)
+    host_tree = lambda t: {k: v.cpu() for k, v in flatten(t).items()}  # noqa: E731
+    return {"loss": metrics["loss"].item(), "d": metrics["d"].item(), "s": secs,
+            "before": host_tree(state["trainable"]), "after": host_tree(new["trainable"]),
+            "exp_avg": host_tree(new["opt_state"]["exp_avg"]),
+            "launches": dict(kernels.LAUNCHES), "bytes": M.ALL_REDUCE_BYTES[0]}
+
+
+def _multicard_rank(steps: int) -> dict:
+    """One of (b)'s two ranks: both on cuda:0 over gloo."""
+    from edgestyle_tpu_torch import kernels
+    from edgestyle_tpu_torch.core import mesh as M
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.ops import tp
+
+    # as main() sets them for this script's own process (cuDNN's default
+    # would run the fp32 convs in TF32 here and not there)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = M.init_distributed(torch.device("cuda", 0), backend="gloo")
+    dp_mesh = M.make_mesh(M.MeshSpec(data=2, model=1), dev)
+    tp_mesh = M.make_mesh(M.MeshSpec(data=1, model=2), dev)
+    pipe, params, _ = build_pipeline(dev)
+    ids, neg, imgs = _mc_request(pipe, dev)
+    replicate_s, _ = _wall(lambda: M.replicate_params(dp_mesh, params), 1)
+    out = {"rank": torch.distributed.get_rank(), "replicate_s": replicate_s}
+
+    kernels.reset_launches()
+    out["dp_s"], dp = _wall(lambda: pipe.generate_dp(
+        dp_mesh, params, ids, neg, imgs, generator=make_generator(MC_LATENT_SEED, dev),
+        num_inference_steps=steps), 1)
+    out["dp"], out["dp_launches"] = dp.cpu(), dict(kernels.LAUNCHES)
+
+    kernels.reset_launches()
+    tp.ALL_REDUCES[0] = tp.REDUCED_BYTES[0] = 0
+    out["tp_s"], tpi = _wall(lambda: pipe.generate_tp(
+        tp_mesh, params, ids[:1], neg[:1], [im[:1] for im in imgs],
+        generator=make_generator(MC_LATENT_SEED, dev), num_inference_steps=steps), 1)
+    out["tp"], out["tp_launches"] = tpi.cpu(), dict(kernels.LAUNCHES)
+    out["all_reduces"], out["tp_bytes"] = tp.ALL_REDUCES[0], tp.REDUCED_BYTES[0]
+    out["all_reduces_predicted"] = tp_all_reduces(pipe, params, steps)
+    del pipe, params, dp, tpi
+    torch.cuda.empty_cache()
+
+    out["train"] = {}
+    for run in MC_TRAIN_RUNS:
+        out["train"][run] = _mc_train_step(dev, dp_mesh, run)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mc_update_diffs(dp: dict, single: dict) -> dict:
+    """The DP step against the single-process one: the loss's and d's
+    relative differences, and per trainable group the relative L2
+    difference of the updates (after - before) and of the gradients
+    (Prodigy's first exp_avg, (1 - beta1) d g: an update below a weight's
+    ulp is lost in the weight, not in exp_avg); 0 where both are 0."""
+    from edgestyle_tpu_torch.training.train_step import TRAINABLE_GROUPS
+
+    def rel_l2(a, b, base):
+        num = math.sqrt(sum((a[k] - b[k]).float().square().sum().item() for k in a))
+        den = math.sqrt(sum((b[k] - base[k]).float().square().sum().item() for k in a))
+        return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+    groups, grads = {}, {}
+    for g in TRAINABLE_GROUPS:
+        keys = [k for k in single["before"] if k[0] == g]
+        pick = lambda t: {k: t[k] for k in keys}  # noqa: E731
+        groups[g] = rel_l2(pick(dp["after"]), pick(single["after"]), single["before"])
+        zero = {k: torch.zeros_like(v) for k, v in pick(single["exp_avg"]).items()}
+        grads[g] = rel_l2(pick(dp["exp_avg"]), pick(single["exp_avg"]), zero)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    return {"loss": rel(dp["loss"], single["loss"]), "d": rel(dp["d"], single["d"]),
+            "groups": groups, "grads": grads}
+
+
+def _level_diff(a, b):
+    """(mean, max) |a - b| of two [0, 1] image batches in uint8 levels."""
+    d = ((a.float() * 255).round() - (b.float() * 255).round()).abs()
+    return d.mean().item(), d.max().item()
+
+
+def multicard_phase(dev, card: str) -> dict:
+    """(a) and (b) above. Returns (b)'s rank 0 launches of each path."""
+    from edgestyle_tpu_torch.core import mesh as M
+    from edgestyle_tpu_torch.core.device import make_generator
+
+    rec = {"card": card, "steps": MC_STEPS}
+    # (a): NCCL, one rank, in this process
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(M.free_port()))
+    try:
+        M.init_distributed(dev, backend="nccl")
+        mesh = M.make_mesh(M.MeshSpec(data=1, model=1), dev)
+        pipe, params, _ = build_pipeline(dev)
+        ids, neg, imgs = _mc_request(pipe, dev)
+        rec["single_b2_s"], ref2 = _wall(lambda: pipe(
+            params, ids, neg, imgs, generator=make_generator(MC_LATENT_SEED, dev),
+            num_inference_steps=MC_STEPS), 1)
+        rec["single_b1_s"], ref1 = _wall(lambda: pipe(
+            params, ids[:1], neg[:1], [im[:1] for im in imgs],
+            generator=make_generator(MC_LATENT_SEED, dev), num_inference_steps=MC_STEPS), 1)
+        rec["nccl_dp_s"], dp1 = _wall(lambda: pipe.generate_dp(
+            mesh, params, ids, neg, imgs, generator=make_generator(MC_LATENT_SEED, dev),
+            num_inference_steps=MC_STEPS), 1)
+        check_images(dp1, 2, "multicard (a) generate_dp")
+        if not torch.equal(dp1, ref2):
+            fail(f"multicard (a): NCCL one-rank generate_dp differs from __call__ by "
+                 f"{(dp1 - ref2).abs().max().item()}")
+        ref2, ref1 = ref2.cpu(), ref1.cpu()
+        del pipe, params, dp1
+        torch.cuda.empty_cache()
+
+        single = {run: _mc_train_step(dev, None, run) for run in MC_TRAIN_RUNS}
+        nccl = _mc_train_step(dev, mesh, "bf16")
+        same = all(nccl[k] == single["bf16"][k] for k in ("loss", "d")) and all(
+            torch.equal(v, single["bf16"]["after"][k]) for k, v in nccl["after"].items())
+        if not same:
+            fail("multicard (a): the NCCL one-rank train step differs from the single-process step")
+        rec["single_train_s"], rec["nccl_train_s"] = single["bf16"]["s"], nccl["s"]
+        torch.cuda.empty_cache()
+    finally:
+        M._destroy()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+    print(f"multicard (a) NCCL one rank: generate_dp B=2 == __call__ bit for bit, train step "
+          f"== single-process step bit for bit (loss {single['bf16']['loss']:.6f}, d "
+          f"{single['bf16']['d']:.3e}); single-process B=2 {rec['single_b2_s']:.3f} s, B=1 "
+          f"{rec['single_b1_s']:.3f} s, NCCL generate_dp {rec['nccl_dp_s']:.3f} s, train step "
+          f"{rec['single_train_s']:.3f} s single / {rec['nccl_train_s']:.3f} s NCCL "
+          f"({MC_STEPS} UniPC steps, 512 px, bf16)", flush=True)
+
+    # (b): two gloo ranks on cuda:0 (the kernels were built above)
+    t0 = time.perf_counter()
+    ranks = M.run_ranks(_multicard_rank, 2, (MC_STEPS,))
+    rec["gloo_wall_s"] = time.perf_counter() - t0
+    gen_launches = serving_launches(MC_STEPS, range(MC_STEPS), range(MC_STEPS))
+    for r in ranks:
+        tag = f"multicard (b) rank {r['rank']}"
+        check_images(r["dp"], 2, f"{tag} generate_dp")
+        check_images(r["tp"], 1, f"{tag} generate_tp")
+        if not torch.equal(r["dp"], ranks[0]["dp"]) or not torch.equal(r["tp"], ranks[0]["tp"]):
+            fail(f"{tag}: the ranks returned different images")
+        dmean, dmax = _level_diff(r["dp"], ref2)
+        tmean, tmax = _level_diff(r["tp"], ref1)
+        trains = {run: _mc_update_diffs(r["train"][run], single[run]) for run in MC_TRAIN_RUNS}
+        per_step = r["tp_bytes"] / MC_STEPS
+        print(f"{tag}: generate_dp B=2 {r['dp_s']:.3f} s (rows 1 a rank; two ranks share "
+              f"the card), vs single-process B=2 mean {dmean:.4f} max {dmax:.0f} levels; "
+              f"generate_tp model=2 B=1 {r['tp_s']:.3f} s, vs single-process B=1 mean "
+              f"{tmean:.4f} max {tmax:.0f} levels, {r['all_reduces']} all-reduces (predicted "
+              f"{r['all_reduces_predicted']}), {r['tp_bytes']} bytes ({per_step:.0f} a step "
+              f"with the prompt encode's share); replicate_params {r['replicate_s']:.3f} s; "
+              f"launches dp {r['dp_launches']} tp {r['tp_launches']}", flush=True)
+        for run, t in trains.items():
+            print(f"{tag}: DP train step {run}: {r['train'][run]['s']:.3f} s (single-process "
+                  f"{single[run]['s']:.3f} s), loss {r['train'][run]['loss']:.6f} (single "
+                  f"{single[run]['loss']:.6f}), d {r['train'][run]['d']:.3e}, update rel. L2 per "
+                  f"group { {g: round(v, 6) for g, v in t['groups'].items()} }, gradient "
+                  f"{ {g: round(v, 6) for g, v in t['grads'].items()} }, "
+                  f"{r['train'][run]['bytes']} bytes all-reduced, launches "
+                  f"{r['train'][run]['launches']}", flush=True)
+        if not (dmean <= SERVE_MEAN_TOL and dmax <= SERVE_MAX_TOL):
+            fail(f"{tag}: generate_dp off the single-process images by mean {dmean}, max "
+                 f"{dmax} levels (tol {SERVE_MEAN_TOL}, {SERVE_MAX_TOL})")
+        if not (tmean <= SERVE_MEAN_TOL and tmax <= SERVE_MAX_TOL):
+            fail(f"{tag}: generate_tp off the single-process image by mean {tmean}, max "
+                 f"{tmax} levels (tol {SERVE_MEAN_TOL}, {SERVE_MAX_TOL})")
+        for run, tol, loss_tol in (("bf16", GRAD_TOL, MC_LOSS_TOL),
+                                   ("bf16_live", GRAD_TOL, MC_LOSS_TOL),
+                                   ("fp32", MC_FP32_TOL, MC_FP32_TOL)):
+            t = trains[run]
+            held = [*t["grads"].values(), *(t["groups"].values() if run == "bf16" else ())]
+            if t["loss"] > loss_tol or t["d"] > loss_tol or not all(v <= tol for v in held):
+                fail(f"{tag}: the {run} DP train step off the single-process one: loss and d "
+                     f"{t['loss']}, {t['d']} relative (tol {loss_tol}), gradient per group "
+                     f"{t['grads']}, update {t['groups']} (tol {tol})")
+        if r["all_reduces"] != r["all_reduces_predicted"]:
+            fail(f"{tag}: {r['all_reduces']} TP all-reduces, the code predicts "
+                 f"{r['all_reduces_predicted']}")
+        if r["dp_launches"] != gen_launches or r["tp_launches"] != gen_launches:
+            fail(f"{tag}: the generations' launches differ from the prediction {gen_launches}")
+        fp32_step = {**TRAIN_LAUNCHES_PER_STEP, "gn_scale_shift": 0, "fused_gn_silu_conv3x3": 0}
+        for run, want in (("bf16", TRAIN_LAUNCHES_PER_STEP), ("bf16_live", TRAIN_LAUNCHES_PER_STEP),
+                          ("fp32", fp32_step)):
+            if r["train"][run]["launches"] != want:
+                fail(f"{tag}: the {run} train step's launches differ from the prediction {want}")
+            if r["train"][run]["bytes"] != 4 * (sum(
+                    v.numel() for v in r["train"][run]["after"].values()) + 1):
+                fail(f"{tag}: the {run} train step all-reduced {r['train'][run]['bytes']} "
+                     f"bytes, not every gradient and the loss once")
+        rec[f"rank{r['rank']}"] = {
+            "dp_s": r["dp_s"], "tp_s": r["tp_s"], "dp_levels": [dmean, dmax],
+            "tp_levels": [tmean, tmax], "all_reduces": r["all_reduces"],
+            "tp_bytes": r["tp_bytes"], "replicate_s": r["replicate_s"],
+            "train": {run: {"s": r["train"][run]["s"], "bytes": r["train"][run]["bytes"], **t}
+                      for run, t in trains.items()}}
+    print(json.dumps({"multicard": rec}), flush=True)
+    return {"generate_dp": ranks[0]["dp_launches"], "generate_tp": ranks[0]["tp_launches"],
+            "dp_training": ranks[0]["train"]["bf16"]["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -4524,6 +4840,10 @@ def main() -> int:
     t0 = time.perf_counter()
     extract_launches = extract_phase(dev, card, clip_files)
     print(f"phase extract: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multicard_launches = multicard_phase(dev, card)
+    print(f"phase multicard: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
@@ -4538,7 +4858,7 @@ def main() -> int:
                "data_training": data_launches, "validation": validation_launches,
                **distill_launches_by_run, "lcm_serving": lcm_launches, **infer_launches,
                "segmenter": seg_launches, "auto_mask": auto_launches,
-               "extract": extract_launches}
+               "extract": extract_launches, **multicard_launches}
     out = []
     for name, source, replaces, shapes in records:
         # the record's bound is the largest shape's; exponentials are
@@ -4560,6 +4880,8 @@ def main() -> int:
             fail(f"kernel {name} was never launched on its path ({paths[name]})")
         if by_path["distill_consistency"][name] == 0:
             fail(f"kernel {name} was never launched on the distiller's path")
+        if by_path["dp_training"][name] == 0:
+            fail(f"kernel {name} was never launched on the data-parallel train step")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

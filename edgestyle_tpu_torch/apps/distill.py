@@ -1,4 +1,4 @@
-"""The LCM-LoRA distiller's entry point, on one card.
+"""The LCM-LoRA distiller's entry point, on one card or data parallel on several.
 
 Counterpart of edgestyle_tpu/apps/distill.py, with its flag set, aliases,
 defaults and choices (:func:`parse_args`). The frozen try-on stack (SD1.5
@@ -16,8 +16,8 @@ line every ``--logging_steps`` (and logs the loss to TensorBoard through
 ``tensorboardX`` where it is installed), checkpoints with rotation and
 resume (training/checkpoint.py), and ends with the final checkpoint and
 ``lcm_lora.safetensors``, written in the JAX package's layout, so either
-package's ``--lcm_lora`` reads it. More than one card is refused with
-``NotImplementedError`` naming its ROADMAP item.
+package's ``--lcm_lora`` reads it. Under ``torchrun --nproc_per_node N``
+it distils data parallel, as apps/train.py::main trains.
 
     python -m edgestyle_tpu_torch.apps.distill --random_init --max_train_steps 3
     python -m edgestyle_tpu_torch.apps.distill --random_init --distill_mode guidance \\
@@ -159,14 +159,19 @@ def main(argv=None, device="cuda", base_cfg=None):
     """Distil; print one JSON line every ``--logging_steps`` and a final one.
     Returns {'state', 'frozen', 'log'}: the final distill state, the frozen
     weights it distilled against and the logged metrics. ``device`` and
-    ``base_cfg`` as :func:`build` takes them."""
+    ``base_cfg`` as :func:`build` takes them. Under torchrun the ranks
+    distil data parallel, with apps/train.py::main's rules (the global
+    micro-batch, each rank's rows, rank 0's output)."""
     from edgestyle_tpu_torch.apps.train import (
         check_supported,
+        data_parallel,
         dataset_loader,
+        rank_batch,
         summary_writer,
         synthetic_loader,
     )
     from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.core.mesh import DATA_AXIS, is_rank0, replicate_params
     from edgestyle_tpu_torch.data.tokenizer import empty_prompt_ids
     from edgestyle_tpu_torch.training.checkpoint import (
         export_safetensors,
@@ -177,12 +182,16 @@ def main(argv=None, device="cuda", base_cfg=None):
 
     args = parse_args(argv)
     check_supported(args)
+    device, mesh = data_parallel(device)
     pipe, frozen, dcfg, state = build(args, device, base_cfg)
-    step_fn = make_distill_step(pipe, dcfg)
+    step_fn = make_distill_step(
+        pipe, dcfg, data_group=None if mesh is None else mesh.get_group(DATA_AXIS))
     if args.resume_from_checkpoint:
         state = load_checkpoint(args.output_dir, args.resume_from_checkpoint
                                 if args.resume_from_checkpoint == "latest"
                                 else int(args.resume_from_checkpoint), pipe.device)
+    if mesh is not None:
+        replicate_params(mesh, state)
     ids = torch.from_numpy(empty_prompt_ids(1, pipe.cfg.clip.max_positions)).long()
     with torch.no_grad():
         uncond_ctx = pipe.clip(frozen["clip"], ids.to(pipe.device))["last_hidden_state"]
@@ -192,22 +201,24 @@ def main(argv=None, device="cuda", base_cfg=None):
         from edgestyle_tpu_torch.data.prefetch import prefetch
 
         loader = prefetch(loader, depth=2)
-    writer = summary_writer(args)
+    rank0 = is_rank0()
+    writer = summary_writer(args) if rank0 else None
     log = []
     t0 = time.time()
     try:
         for batch in loader:
             if state["step"] >= args.max_train_steps:
                 break
-            batch = {k: torch.from_numpy(v).to(pipe.device) for k, v in batch.items()}
-            state, metrics = step_fn(state, frozen, batch, uncond_ctx,
-                                     sample_distill_draws(pipe, dcfg, batch, draw_gen))
+            batch, draws = rank_batch(mesh, batch,
+                                      sample_distill_draws(pipe, dcfg, batch, draw_gen))
+            state, metrics = step_fn(state, frozen, batch, uncond_ctx, draws)
             gstep = state["step"]
             if gstep % args.logging_steps == 0:
                 rec = {"step": gstep, "loss": float(metrics["loss"]),
                        "elapsed_s": round(time.time() - t0, 3)}
                 log.append(rec)
-                print(json.dumps(rec), flush=True)
+                if rank0:
+                    print(json.dumps(rec), flush=True)
                 if writer is not None:
                     writer.add_scalar("distill_loss", rec["loss"], gstep)
             if args.checkpointing_steps and gstep % args.checkpointing_steps == 0:
@@ -221,7 +232,8 @@ def main(argv=None, device="cuda", base_cfg=None):
     # the serving artifact: the adapters alone, merged at load by --lcm_lora
     export_safetensors(os.path.join(args.output_dir, "lcm_lora.safetensors"),
                        {"lcm_lora": state["lcm_lora"]})
-    print(json.dumps({"done": True, "final_step": state["step"]}), flush=True)
+    if rank0:
+        print(json.dumps({"done": True, "final_step": state["step"]}), flush=True)
     return {"state": state, "frozen": frozen, "log": log}
 
 

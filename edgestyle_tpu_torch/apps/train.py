@@ -1,4 +1,4 @@
-"""The ControlLoRA trainer's entry point, on one card.
+"""The ControlLoRA trainer's entry point, on one card or data parallel on several.
 
 Counterpart of edgestyle_tpu/apps/train.py, with its flag set and defaults
 (:func:`parse_args`). Ported: the frozen weights from diffusers/HF
@@ -15,8 +15,8 @@ TensorBoard through ``tensorboardX`` where it is installed, skipped where
 it is not, as in the JAX trainer); checkpointing with rotation and resume,
 the final checkpoint and the trained set's two exports
 (``edgestyle_trainable.safetensors`` and the reference's ``controlnet/``
-layout). More than one card is refused with ``NotImplementedError``
-naming its ROADMAP item.
+layout). Under ``torchrun --nproc_per_node N`` it trains data parallel
+(:func:`main`).
 
     python -m edgestyle_tpu_torch.apps.train --random_init --resolution 512 \\
         --train_batch_size 2 --gradient_accumulation_steps 1 --max_train_steps 3
@@ -24,6 +24,8 @@ naming its ROADMAP item.
         --dataloader_num_workers 2 --validation_steps 100 --max_train_steps 1000
     python -m edgestyle_tpu_torch.apps.train --pretrained_model rv51 \\
         --vae sd-vae-ft-mse --openpose_controlnet openpose --max_train_steps 3
+    torchrun --nproc_per_node 4 -m edgestyle_tpu_torch.apps.train --random_init \\
+        --train_batch_size 4 --max_train_steps 3
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import time
 import numpy as np
 import torch
 
-ROADMAP_CARDS = "ROADMAP.md Queue 1 item 16"
+from edgestyle_tpu_torch.core.mesh import world_size
+
 WEIGHT_DIRS = ("pretrained_model", "vae", "openpose_controlnet")
 PROPORTIONS = ("proportion_empty_prompts", "proportion_empty_images",
                "proportion_patchworked_images", "proportion_cutout_images",
@@ -133,14 +136,53 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Refuse what this slice does not port yet, and a run with no weights."""
+    """Refuse a run with no weights, and a micro-batch that the ranks
+    cannot share."""
     missing = [f"--{n}" for n in WEIGHT_DIRS if not getattr(args, n)]
     if not args.random_init and missing:
         raise ValueError(f"without --random_init the weights come from --pretrained_model, "
                          f"--vae and --openpose_controlnet; missing {', '.join(missing)}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"more than one card: data-parallel training is not "
-                                  f"ported yet ({ROADMAP_CARDS})")
+    check_batch_divisible(args.train_batch_size, world_size())
+
+
+def check_batch_divisible(train_batch_size: int, device_count: int) -> None:
+    """Each rank takes train_batch_size / ranks samples of every
+    micro-batch, so the ranks must divide it (the JAX trainer's check and
+    message)."""
+    if train_batch_size % device_count != 0:
+        raise SystemExit(
+            f"--train_batch_size ({train_batch_size}) must be divisible by "
+            f"the device count ({device_count}): each device takes "
+            f"train_batch_size/device_count samples of every micro-batch. "
+            f"Raise --train_batch_size or lower "
+            f"--gradient_accumulation_steps to keep the sample budget.")
+
+
+def data_parallel(device):
+    """(device, mesh): under torchrun (``WORLD_SIZE`` > 1) this rank's device
+    from core/mesh.py::init_distributed and the all-data mesh; with one
+    process, ``device`` and None."""
+    if world_size() == 1:
+        return device, None
+    from edgestyle_tpu_torch.core.mesh import init_distributed, make_mesh
+
+    dev = init_distributed(device)
+    return dev, make_mesh(device=dev)
+
+
+def rank_batch(mesh, batch, draws):
+    """This rank's rows of a global (grad_accum, micro_bs, ...) host batch
+    and of its draws (all of both with no mesh), the batch on the draws'
+    device."""
+    if mesh is not None:
+        from edgestyle_tpu_torch.core.mesh import rows, shard_batch
+        from edgestyle_tpu_torch.training.train_step import local_draws
+
+        mb = batch["original"].shape[1]
+        draws = local_draws(draws, rows(mesh, mb), mb)
+        batch = shard_batch(mesh, batch, axis=1)
+    dev = draws[0]["noise"].device
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, draws
 
 
 def train_steps(args) -> int:
@@ -234,7 +276,7 @@ def build(args, device="cuda", base_cfg=None):
     max_train_steps = train_steps(args)
     lr = args.learning_rate
     if args.scale_lr:
-        lr *= args.gradient_accumulation_steps * args.train_batch_size  # one card
+        lr *= args.gradient_accumulation_steps * args.train_batch_size * world_size()
     tcfg = TrainConfig(
         snr_gamma=args.snr_gamma,
         max_grad_norm=args.max_grad_norm,
@@ -324,8 +366,18 @@ def main(argv=None, device="cuda", base_cfg=None):
     """Train; print one JSON line every ``--logging_steps`` and a final one.
     Returns {'state', 'frozen', 'log'}: the final train state, the frozen
     weights it trained against and the logged metrics. ``device`` and
-    ``base_cfg`` as :func:`build` takes them."""
+    ``base_cfg`` as :func:`build` takes them.
+
+    Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` > 1) the ranks
+    train data parallel (core/mesh.py): ``--train_batch_size`` is the
+    global micro-batch, each rank takes its rows of every global batch
+    (every rank reads the loader in the single-process order, and the same
+    draws) and the gradients are averaged over the ranks each step; rank 0
+    prints, logs, validates and writes the checkpoints and exports. Each
+    rank runs on ``cuda:LOCAL_RANK`` unless ``device`` names one, over
+    ``nccl`` (``gloo`` on the CPU)."""
     from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.core.mesh import DATA_AXIS, is_rank0, on_rank0, replicate_params
     from edgestyle_tpu_torch.core.pretrained import export_reference_layout
     from edgestyle_tpu_torch.training.checkpoint import (
         export_safetensors,
@@ -336,12 +388,17 @@ def main(argv=None, device="cuda", base_cfg=None):
 
     args = parse_args(argv)
     check_supported(args)
+    device, mesh = data_parallel(device)
     pipe, frozen, tcfg, state, max_train_steps = build(args, device, base_cfg)
     if args.resume_from_checkpoint:
         state = load_checkpoint(args.output_dir, args.resume_from_checkpoint
                                 if args.resume_from_checkpoint == "latest"
                                 else int(args.resume_from_checkpoint), pipe.device)
-    step_fn = make_train_step(pipe, tcfg)
+    if mesh is not None:
+        # every rank drew or read the same weights; the state starts as rank 0's
+        replicate_params(mesh, state)
+    step_fn = make_train_step(pipe, tcfg,
+                              data_group=None if mesh is None else mesh.get_group(DATA_AXIS))
     draw_gen = make_generator(args.seed + 1, pipe.device)
     loader = dataset_loader(args) if args.dataset_dir else synthetic_loader(args)
     if args.dataloader_num_workers > 0:
@@ -349,22 +406,24 @@ def main(argv=None, device="cuda", base_cfg=None):
         from edgestyle_tpu_torch.data.prefetch import prefetch
 
         loader = prefetch(loader, depth=2)
-    writer = summary_writer(args)
+    rank0 = is_rank0()
+    writer = summary_writer(args) if rank0 else None
     log = []
     t0 = time.time()
     try:
-        for batch in loader:
+        for host in loader:
             if state["step"] >= max_train_steps:
                 break
-            batch = {k: torch.from_numpy(v).to(pipe.device) for k, v in batch.items()}
-            state, metrics = step_fn(state, frozen, batch,
-                                     sample_draws(pipe, tcfg, batch, draw_gen))
+            # the global batch's draws; each rank takes its rows of both
+            batch, draws = rank_batch(mesh, host, sample_draws(pipe, tcfg, host, draw_gen))
+            state, metrics = step_fn(state, frozen, batch, draws)
             gstep = state["step"]
             if gstep % args.logging_steps == 0:
                 rec = {"step": gstep, "loss": float(metrics["loss"]), "d": float(metrics["d"]),
                        "elapsed_s": round(time.time() - t0, 3)}
                 log.append(rec)
-                print(json.dumps(rec), flush=True)
+                if rank0:
+                    print(json.dumps(rec), flush=True)
                 if writer is not None:
                     writer.add_scalar("train_loss", rec["loss"], gstep)
                     writer.add_scalar("train_lr", rec["d"], gstep)
@@ -373,10 +432,12 @@ def main(argv=None, device="cuda", base_cfg=None):
             if args.validation_steps and gstep % args.validation_steps == 0 and writer:
                 from edgestyle_tpu_torch.training.validation import log_validation
 
-                # the first micro-batch, capped at --num_validation_images
+                # the global batch's first micro-batch, capped at
+                # --num_validation_images
                 n = args.num_validation_images
                 log_validation(pipe, frozen, state["trainable"],
-                               {k: v[0, :n] for k, v in batch.items()}, gstep, writer,
+                               {k: torch.from_numpy(v[0, :n]).to(pipe.device)
+                                for k, v in host.items()}, gstep, writer,
                                num_inference_steps=8, use_agnostic=args.use_agnostic_images,
                                # the reference's sweep (train...py:146)
                                guidance_scales=tuple(np.linspace(3.0, 7.5, n)))
@@ -391,9 +452,10 @@ def main(argv=None, device="cuda", base_cfg=None):
     # stack reads; --edgestyle_checkpoint of the try-on takes either
     export_safetensors(os.path.join(args.output_dir, "edgestyle_trainable.safetensors"),
                        state["trainable"])
-    export_reference_layout(os.path.join(args.output_dir, "controlnet"), state["trainable"],
-                            unet_conv_in=frozen["unet"]["conv_in"])
-    print(json.dumps({"done": True, "final_step": state["step"]}), flush=True)
+    on_rank0(export_reference_layout, os.path.join(args.output_dir, "controlnet"),
+             state["trainable"], unet_conv_in=frozen["unet"]["conv_in"])
+    if rank0:
+        print(json.dumps({"done": True, "final_step": state["step"]}), flush=True)
     return {"state": state, "frozen": frozen, "log": log}
 
 

@@ -16,7 +16,8 @@ import torch
 
 from edgestyle_tpu_torch.core.params import param, sub
 from edgestyle_tpu_torch.core.porting import KeyMapper
-from edgestyle_tpu_torch.models.layers import dense, layer_norm_block
+from edgestyle_tpu_torch.models.layers import column_parallel, dense, layer_norm_block, row_dense
+from edgestyle_tpu_torch.ops import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +53,19 @@ def _attention(p, x, causal_mask, cfg: CLIPTextConfig, dtype):
 
 def clip_layer(lp, x, mask, cfg: CLIPTextConfig, dtype):
     """One pre-LN encoder layer (quick-GELU MLP); ``mask`` is added to the
-    attention logits: the causal mask here, zeros in the vision tower."""
+    attention logits: the causal mask here, zeros in the vision tower.
+    Tensor-parallel where fc1 holds a shard (fc1 column-, fc2 row-parallel;
+    the attention's q/k/v/out_proj match no rule of core/partitioning.py,
+    as in the JAX package, and stay replicated)."""
     x = x + _attention(sub(lp, "self_attn"),
                        layer_norm_block(sub(lp, "layer_norm1"), x, cfg.layer_norm_eps),
                        mask, cfg, dtype)
     hdn = layer_norm_block(sub(lp, "layer_norm2"), x, cfg.layer_norm_eps)
+    split = column_parallel(lp, "fc1", cfg.intermediate_size)
+    if split:
+        hdn = tp.copy_to_model(hdn)
     hdn = quick_gelu(dense(sub(lp, "fc1"), hdn, cfg.intermediate_size, dtype))
-    return x + dense(sub(lp, "fc2"), hdn, cfg.hidden_size, dtype)
+    return x + row_dense(sub(lp, "fc2"), hdn, cfg.hidden_size, dtype, split)
 
 
 class CLIPTextEncoder:

@@ -5,6 +5,9 @@ its param subtree ``p`` (core/params.py) and its inputs; images are NCHW in
 ``channels_last`` memory, token sequences (B, N, C). Types flow as in the
 JAX package: a Dense or conv casts its input and weights to the compute
 ``dtype``, norms return their input's dtype, and residual sums promote.
+Inside ``ops.tp.model_parallel`` an attention and a GEGLU feed-forward
+whose kernels hold a shard (core/partitioning.py) run tensor-parallel:
+:func:`column_parallel` tells, :func:`row_dense` sums the partial products.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from edgestyle_tpu_torch.core.params import param, sub
-from edgestyle_tpu_torch.ops import quant
+from edgestyle_tpu_torch.ops import quant, tp
 from edgestyle_tpu_torch.ops.attention import multi_head_attention
 from edgestyle_tpu_torch.ops.fused_conv import norm_act_conv3x3
 from edgestyle_tpu_torch.ops.norms import cast, group_norm, layer_norm
@@ -57,6 +60,25 @@ def dense(p, x: torch.Tensor, features: int, dtype, use_bias: bool = True) -> to
     if quant.active() and quant.dense_quantizable(x, features):
         return quant.quant_dense(x, w, b, dtype)
     return F.linear(cast(x, dtype), cast(w, dtype), cast(b, dtype))
+
+
+def column_parallel(p, name: str, features: int) -> bool:
+    """True where Dense ``name`` of ``p`` holds this rank's rows of a
+    column-parallel kernel (core/partitioning.py) inside
+    ``tp.model_parallel``; always False outside it."""
+    return tp.group() is not None and p[name]["kernel"].shape[0] != features
+
+
+def row_dense(p, x: torch.Tensor, features: int, dtype, sharded: bool) -> torch.Tensor:
+    """The Dense after a column-parallel one. With ``sharded`` (``x`` holds
+    this rank's share of the features, the kernel the matching columns) the
+    partial products are all-reduced over the model group and the bias is
+    added once, after the sum; otherwise :func:`dense`."""
+    if not sharded:
+        return dense(p, x, features, dtype)
+    w = param(p, "kernel", (features, x.shape[-1]))
+    b = param(p, "bias", (features,), "zeros")
+    return tp.reduce_from_model(F.linear(cast(x, dtype), cast(w, dtype))) + cast(b, dtype)
 
 
 def conv(p, x: torch.Tensor, features: int, kernel_size: int, dtype, stride: int = 1,
@@ -167,21 +189,35 @@ def vae_attention(p, x, dtype):
 
 
 def cross_attention(p, x, context, num_heads: int, dtype):
+    """Multi-head attention; tensor-parallel, with q/k/v column-parallel and
+    to_out row-parallel, where its kernels hold a shard: this rank's
+    num_heads / tp heads."""
     c = x.shape[-1]
+    split = column_parallel(p, "to_q", c)
+    if split:
+        context = None if context is None else tp.copy_to_model(context)
+        x = tp.copy_to_model(x)
     context = x if context is None else context
     q = dense(sub(p, "to_q"), x, c, dtype, use_bias=False)
     k = dense(sub(p, "to_k"), context, c, dtype, use_bias=False)
     v = dense(sub(p, "to_v"), context, c, dtype, use_bias=False)
-    out = multi_head_attention(q, k, v, num_heads)
-    return dense(sub(p, "to_out"), out, c, dtype)
+    out = multi_head_attention(q, k, v, num_heads * q.shape[-1] // c)
+    return row_dense(sub(p, "to_out"), out, c, dtype, split)
 
 
 def geglu_ff(p, x, dtype):
+    """GEGLU feed-forward. Tensor-parallel where proj_in holds a shard: its
+    rows are this rank's share of the hidden half and the same share of the
+    gate half (core/partitioning.py), so the local chunk pairs up, and
+    proj_out is row-parallel."""
     c = x.shape[-1]
+    split = column_parallel(p, "proj_in", c * 8)
+    if split:
+        x = tp.copy_to_model(x)
     h = dense(sub(p, "proj_in"), x, c * 8, dtype)
     h, gate = h.chunk(2, dim=-1)
     h = h * F.gelu(gate)  # exact (erf) GELU
-    return dense(sub(p, "proj_out"), h, c, dtype)
+    return row_dense(sub(p, "proj_out"), h, c, dtype, split)
 
 
 def transformer_block(p, x, context, num_heads: int, dtype, hw=None, tome=None):

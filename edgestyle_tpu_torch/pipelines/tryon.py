@@ -25,8 +25,9 @@ the first request when none is loaded; :meth:`save_int8_scales` /
 keys). The weights are quantised after the prompt and the control images
 are encoded, and kept on the pipeline for the next generation while they
 are the same, unwritten tensors; every model call of the step loop runs
-inside ``quantize_intercept``. Not ported: ``generate_dp`` /
-``generate_tp`` (ROADMAP.md Queue 1 item 16).
+inside ``quantize_intercept``. Several cards: :meth:`generate_dp` (batch
+rows over the ``data`` ranks) and :meth:`generate_tp` (attention and
+feed-forward kernels over the ``model`` ranks, core/partitioning.py).
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ from edgestyle_tpu_torch.core.device import (
     resolve_device,
     torch_dtype,
 )
+from edgestyle_tpu_torch.core.mesh import MODEL_AXIS, gather_rows, rows
 from edgestyle_tpu_torch.core.params import InitTree, flatten, materialize, sub
+from edgestyle_tpu_torch.core.partitioning import shard_params_tp
 from edgestyle_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from edgestyle_tpu_torch.models.multicontrolnet import EdgeStyleMultiControlNet, edgestyle_fusion
 from edgestyle_tpu_torch.models.unet import (
@@ -57,6 +60,7 @@ from edgestyle_tpu_torch.models.unet import (
     split_trunk_params,
 )
 from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from edgestyle_tpu_torch.ops import tp
 from edgestyle_tpu_torch.ops.quant import quantize_denoise_params, quantize_intercept, recording
 from edgestyle_tpu_torch.ops.tome import ToMeConfig
 from edgestyle_tpu_torch.schedulers.ddpm import NoiseSchedule
@@ -65,6 +69,7 @@ from edgestyle_tpu_torch.schedulers.lcm import LCMScheduler
 from edgestyle_tpu_torch.schedulers.unipc import UniPCScheduler
 
 ROADMAP_ITEM_16 = "ROADMAP.md Queue 1 item 16"
+DEFAULT_STEPS = 20
 QUANT_MODES = ("none", "int8", "int8-static")
 SCHEDULERS = {"unipc": UniPCScheduler, "dpm++": DPMSolverScheduler,
               "dpmsolver++": DPMSolverScheduler, "lcm": LCMScheduler}
@@ -371,7 +376,8 @@ class EdgeStylePipeline:
     @torch.no_grad()
     def __call__(self, params, prompt_ids, negative_prompt_ids,
                  cond_images: Sequence[torch.Tensor],
-                 generator: Optional[torch.Generator] = None, num_inference_steps: int = 20,
+                 generator: Optional[torch.Generator] = None,
+                 num_inference_steps: int = DEFAULT_STEPS,
                  guidance_scale=3.5, conditioning_scale: Optional[Sequence[float]] = None,
                  latents: Optional[torch.Tensor] = None, guess_mode: bool = False, control_guidance_start=0.0,
                  control_guidance_end=1.0, controlnet_cache_interval: int = 1,
@@ -478,13 +484,80 @@ class EdgeStylePipeline:
         return (cfg_on, refresh_mask(controlnet_cache_interval, cn_steps),
                 refresh_mask(unet_cache_interval, deep_steps))
 
-    def generate_dp(self, *args, **kwargs):
-        raise NotImplementedError(f"generate_dp (several cards) is not ported yet "
-                                  f"({ROADMAP_ITEM_16})")
+    def generate_dp(self, mesh, params, prompt_ids, negative_prompt_ids,
+                    cond_images: Sequence[torch.Tensor],
+                    generator: Optional[torch.Generator] = None,
+                    latents: Optional[torch.Tensor] = None, **kwargs):
+        """Data-parallel batch generation over the ranks of ``mesh``
+        (core/mesh.py): the counterpart of the JAX package's
+        ``generate_dp``.
 
-    def generate_tp(self, *args, **kwargs):
-        raise NotImplementedError(f"generate_tp (several cards) is not ported yet "
-                                  f"({ROADMAP_ITEM_16})")
+        Every rank passes the global batch and the same ``params`` (once
+        :func:`~edgestyle_tpu_torch.core.mesh.replicate_params` has made
+        them the same), runs :meth:`__call__` on its rows (B / data of
+        them, by its ``data`` coordinate) and returns the global (B, 3, H,
+        W) images, gathered over the data group. The noise is the
+        single-process noise: each rank draws the global initial latents
+        (and LCM's re-noise) from ``generator`` and takes its rows, so
+        ``generator`` or ``latents`` must be given; a per-sample
+        ``guidance_scale`` and ``lcm_noise`` are sliced the same way, and an
+        "int8-static" table is calibrated on the global batch. Raises
+        ValueError when B does not divide the data axis."""
+        if generator is None and latents is None:
+            raise ValueError("generate_dp needs a generator or latents: every rank draws the "
+                             "same global noise and takes its rows")
+        dev = self.device
+        b = prompt_ids.shape[0]
+        sl = rows(mesh, b)
+        cond_images = [torch.as_tensor(im).to(dev, torch.float32) for im in cond_images]
+        if latents is None:
+            latents = torch.randn(
+                (b, self.cfg.unet.in_channels, cond_images[0].shape[2] // self.vae_downscale,
+                 cond_images[0].shape[3] // self.vae_downscale),
+                generator=generator, device=dev, dtype=torch.float32)
+        steps = kwargs.get("num_inference_steps", DEFAULT_STEPS)
+        if isinstance(self.scheduler, LCMScheduler) and steps > 1 and \
+                kwargs.get("lcm_noise") is None:
+            noise_gen = generator if generator is not None else make_generator(0, dev)
+            kwargs["lcm_noise"] = [torch.randn(latents.shape, generator=noise_gen, device=dev,
+                                               dtype=torch.float32) for _ in range(steps - 1)]
+        if kwargs.get("lcm_noise") is not None:
+            kwargs["lcm_noise"] = [n[sl] for n in kwargs["lcm_noise"]]
+        g = kwargs.get("guidance_scale")
+        if g is not None and np.ndim(g) == 1:
+            kwargs["guidance_scale"] = g[sl]
+        if self.quant == "int8-static" and self._int8_scales is None:
+            self.calibrate_int8(params, prompt_ids, negative_prompt_ids, cond_images)
+        local = self(params, prompt_ids[sl], negative_prompt_ids[sl],
+                     [im[sl] for im in cond_images], generator=generator, latents=latents[sl],
+                     **kwargs)
+        return gather_rows(mesh, local, b)
+
+    def generate_tp(self, mesh, params, prompt_ids, negative_prompt_ids,
+                    cond_images: Sequence[torch.Tensor], **kwargs):
+        """Tensor-parallel (and, with a ``data`` axis above 1, DP x TP)
+        generation: the counterpart of the JAX package's ``generate_tp``.
+
+        Each rank keeps its ``model`` coordinate's slices of the attention
+        and feed-forward kernels of every submodel
+        (core/partitioning.py::shard_params_tp; the VAE's single-head
+        attention stays whole) and runs :meth:`generate_dp` inside
+        ``ops.tp.model_parallel``: attention on num_heads / tp local heads,
+        one all-reduce after each row-parallel Dense (3 a transformer
+        block, 1 a CLIP layer). The result equals the single-process one up
+        to the reduction order. The knobs pass through; int8 serving does
+        not combine with the sharded kernels and raises ValueError."""
+        if self.quant != "none":
+            raise ValueError(f"generate_tp does not combine with int8 serving "
+                             f"(quant={self.quant!r}): the per-channel weight scales and "
+                             f"the activation scales would be taken over shards "
+                             f"({ROADMAP_ITEM_16})")
+        heads = {"unet": self.cfg.unet.num_heads, "controlnet": self.cfg.unet.num_heads,
+                 "clip": self.cfg.clip.num_heads, "vae": 1}
+        local = {k: shard_params_tp(mesh, v, num_heads=heads.get(k)) for k, v in params.items()}
+        with tp.model_parallel(mesh.get_group(MODEL_AXIS)):
+            return self.generate_dp(mesh, local, prompt_ids, negative_prompt_ids, cond_images,
+                                    **kwargs)
 
     # ------------------------------------------------------------ int8
     @torch.no_grad()

@@ -6,7 +6,9 @@ weights never are); the save reads back what it wrote and raises unless
 it is equal; ``checkpoint-<step>`` directories rotate under a total limit;
 ``latest`` resumes from the newest step. The format is ``torch.save`` of
 the state moved to the host (one ``state.pt`` per directory), read back
-with ``weights_only=True``.
+with ``weights_only=True``. Under data parallelism (core/mesh.py) rank 0
+writes the checkpoints and exports while the other ranks wait, and every
+rank resumes onto its own device.
 
 The deployable artifact is :func:`export_safetensors`: the trainable set
 as one flat safetensors file in the JAX package's layout (its
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from edgestyle_tpu_torch.core.device import DeviceLike, resolve_device
+from edgestyle_tpu_torch.core.mesh import on_rank0
 from edgestyle_tpu_torch.core.params import flatten, unflatten
 from edgestyle_tpu_torch.core.porting import from_jax_params, to_jax_params
 from edgestyle_tpu_torch.core.safetensors import load_file, save_file
@@ -71,9 +74,15 @@ def states_equal(a, b) -> bool:
 
 def save_checkpoint(root: str, state: Dict[str, Any], total_limit: Optional[int] = None) -> str:
     """Write ``state`` to ``root/checkpoint-<step>/state.pt``; read it back
-    and raise unless equal; keep the newest ``total_limit`` checkpoints."""
-    step = int(state["step"])
-    path = os.path.abspath(_dir(root, step))
+    and raise unless equal; keep the newest ``total_limit`` checkpoints.
+    Under data parallelism rank 0 writes and the others wait at a barrier
+    (the state is the same on every rank)."""
+    path = os.path.abspath(_dir(root, int(state["step"])))
+    on_rank0(_save, root, path, state, total_limit)
+    return path
+
+
+def _save(root: str, path: str, state: Dict[str, Any], total_limit: Optional[int]) -> None:
     os.makedirs(path, exist_ok=True)
     host = _map(state, lambda t: t.detach().cpu())
     tmp = os.path.join(path, STATE_FILE + ".tmp")
@@ -86,7 +95,6 @@ def save_checkpoint(root: str, state: Dict[str, Any], total_limit: Optional[int]
         steps = list_checkpoints(root)
         for s in steps[: max(0, len(steps) - total_limit)]:
             shutil.rmtree(_dir(root, s), ignore_errors=True)
-    return path
 
 
 def list_checkpoints(root: str) -> List[int]:
@@ -103,7 +111,7 @@ def list_checkpoints(root: str) -> List[int]:
 def load_checkpoint(root: str, step: Union[str, int] = "latest",
                     device: DeviceLike = "cuda") -> Dict[str, Any]:
     """The train state of ``checkpoint-<step>`` (``latest``: the newest),
-    its tensors on ``device``."""
+    its tensors on ``device`` (each rank reads it onto its own)."""
     if step == "latest":
         steps = list_checkpoints(root)
         if not steps:
@@ -120,7 +128,11 @@ def export_safetensors(path: str, trainable: Dict[str, Any]) -> None:
     flat dotted keys with the JAX package's Flax leaves (HWIO convs, (in,
     out) Dense and adapters, (H, W, C) LayerNorms; core/porting.py::
     to_jax_params), fp32: the file the JAX package's ``export_safetensors``
-    writes for the same weights."""
+    writes for the same weights. Written by rank 0 under data parallelism."""
+    on_rank0(_export, path, trainable)
+
+
+def _export(path: str, trainable: Dict[str, Any]) -> None:
     flat = {".".join(k): torch.from_numpy(v) for k, v in flatten(to_jax_params(trainable)).items()}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     save_file(flat, path)

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from edgestyle_tpu_torch.core.mesh import all_mean_grads
 from edgestyle_tpu_torch.core.params import flatten, unflatten
 from edgestyle_tpu_torch.models.unet import LORA_LINEAR_LEAF_NAMES, merge_lora
 from edgestyle_tpu_torch.schedulers.ddpm import DeviceSchedule, NoiseSchedule, add_noise
@@ -278,12 +279,16 @@ def init_distill_state(pipe, gen: torch.Generator, unet_params: Dict,
     return state
 
 
-def make_distill_step(pipe, cfg: DistillConfig, sched: Optional[NoiseSchedule] = None):
+def make_distill_step(pipe, cfg: DistillConfig, sched: Optional[NoiseSchedule] = None,
+                      data_group=None):
     """Returns ``distill_step(state, frozen, batch, uncond_ctx, draws) ->
     (state, metrics)``: batches of (grad_accum, micro_bs, ...) tensors,
     ``draws`` :func:`sample_distill_draws`' list; metrics {'loss': the mean
     micro-batch loss}, a 0-d device tensor. The EMA target follows the
-    optimizer's update: d * target + (1 - d) * online."""
+    optimizer's update: d * target + (1 - d) * online. ``data_group``: data
+    parallel, as training/train_step.py::make_train_step takes it (each
+    rank's rows of the batch and of the draws, train_step.local_draws;
+    gradients and losses averaged over the group before the optimizer)."""
     if cfg.mode == "guidance" and cfg.w_min != cfg.w_max:
         # the guidance student has no w input: a random w would give the
         # same (z, t, cond) a different regression target at every draw
@@ -314,6 +319,8 @@ def make_distill_step(pipe, cfg: DistillConfig, sched: Optional[NoiseSchedule] =
                                    uncond_ctx, draws[i])
                 grads = {k: a + g[k] / cfg.grad_accum for k, a in grads.items()}
                 losses.append(loss)
+        if data_group is not None:
+            grads, losses = all_mean_grads(grads, losses, data_group)
         updates, opt_state = opt.update(unflatten(grads), state["opt_state"], lora)
         new_lora = apply_updates(lora, updates)
         new_state = {"lcm_lora": new_lora, "opt_state": opt_state, "step": state["step"] + 1}

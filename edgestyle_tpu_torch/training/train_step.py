@@ -20,6 +20,10 @@ clipping -> Prodigy (or AdamW).
   activations are recomputed in the backward instead of kept.
 * On the card every flash attention and every ResNet conv runs through the
   kernels' autograd Functions (ops/flash.py, ops/fused_conv.py).
+* Data parallel over several ranks (``make_train_step``'s ``data_group``):
+  each rank takes its rows of every micro-batch and of the global draws,
+  and one all-reduce averages the gradients and losses before the
+  optimizer, as the JAX step's batch sharding does through GSPMD.
 
 The state is a dict {trainable, opt_state, step}; ``step`` is a host int.
 Batches are dicts of (grad_accum, micro_bs, ...) tensors, images NCHW.
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from edgestyle_tpu_torch.core.mesh import all_mean_grads
 from edgestyle_tpu_torch.core.params import InitTree, flatten, materialize, unflatten
 from edgestyle_tpu_torch.models.multicontrolnet import edgestyle_fusion
 from edgestyle_tpu_torch.models.unet import (
@@ -238,11 +243,28 @@ def controlnet_loss_fn(trainable: Dict, frozen: Dict, pipe, sched: DeviceSchedul
     return weighted_mse(pred, target, min_snr_weights(sched, t, cfg.snr_gamma))
 
 
-def make_train_step(pipe, cfg: TrainConfig):
+def local_draws(draws: List[Dict], sl: slice, b: int) -> List[Dict]:
+    """This rank's rows ``sl`` of the draws of a global micro-batch of ``b``
+    rows (:func:`sample_draws`, training/distill.py's too): every draw is
+    (b, ...) but ``cond_eps``, which stacks the three VAE conds' (b, ...)
+    blocks, so each third gives its rows."""
+    def take(k, v):
+        return torch.cat([blk[sl] for blk in v.split(b)]) if k == "cond_eps" else v[sl]
+
+    return [{k: take(k, v) for k, v in d.items()} for d in draws]
+
+
+def make_train_step(pipe, cfg: TrainConfig, data_group=None):
     """Returns ``train_step(state, frozen, batch, draws) -> (state,
     metrics)``; ``draws`` is :func:`sample_draws`' list, one per
     micro-batch. metrics: {'loss': mean micro-batch loss, 'd': Prodigy's d
-    (the learning rate for AdamW)}, 0-d device tensors."""
+    (the learning rate for AdamW)}, 0-d device tensors.
+
+    With ``data_group`` (data parallel, core/mesh.py) each rank passes its
+    rows of every micro-batch and of the draws (:func:`local_draws`); the
+    gradients and the losses are averaged over the group in one
+    all-reduce before the clipping, so the clipping and Prodigy's d see
+    the global gradient, and the state stays the same on every rank."""
     dsched = SCHEDULE.to(pipe.device)
     opt = make_optimizer(cfg)
 
@@ -275,6 +297,8 @@ def make_train_step(pipe, cfg: TrainConfig):
                                    draws[i])
                 grads = {k: a + g[k] / cfg.grad_accum for k, a in grads.items()}
                 losses.append(loss)
+        if data_group is not None:
+            grads, losses = all_mean_grads(grads, losses, data_group)
         updates, opt_state = opt.update(unflatten(grads), state["opt_state"], trainable)
         new_state = {"trainable": apply_updates(trainable, updates), "opt_state": opt_state,
                      "step": state["step"] + 1}

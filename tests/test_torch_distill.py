@@ -371,8 +371,15 @@ def test_distill_main_refuses_unpinned_guidance_and_several_cards(monkeypatch):
         app.main(["--random_init", "--resolution", "32", "--lora_rank", str(RANK),
                   "--distill_mode", "guidance", "--w_max", "7"], device="cpu",
                  base_cfg=TRAIN_CFG)
+    # several cards: a micro-batch the ranks cannot share, and ranks that
+    # torchrun did not start
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit, match=r"must be divisible by the device count \(3\)"):
+        app.main(["--random_init"], device="cpu", base_cfg=TRAIN_CFG)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun's environment"):
         app.main(["--random_init"], device="cpu", base_cfg=TRAIN_CFG)
 
 

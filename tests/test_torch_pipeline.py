@@ -126,8 +126,10 @@ def test_pipeline_init_and_generate_on_cpu():
 
 
 def test_pipeline_rejects_unported_knobs():
-    """The multi-card generators are not ported (they name their ROADMAP
-    item, 16); the cache and cfg_interval knobs are, and raise the JAX
+    """The multi-card generators refuse what they cannot do: a DP call with
+    neither a generator nor latents (the ranks could not draw the same
+    noise), TP under int8 (it names its ROADMAP item, 16); the cache and
+    cfg_interval knobs are ported, and raise the JAX
     pipeline's ValueErrors on bad values before reading any input; int8 is
     ported (tests/test_torch_quant.py), and an unknown quant mode raises
     ValueError as in JAX (tests/test_quant.py)."""
@@ -138,9 +140,11 @@ def test_pipeline_rejects_unported_knobs():
         pipe({}, torch.zeros((1, 7)), torch.zeros((1, 7)), [], cfg_interval=(0.4, 0.0))
     with pytest.raises(ValueError, match="quant mode"):
         EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int4")
-    for name in ("generate_dp", "generate_tp"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            getattr(pipe, name)(None, {}, None, None, [])
+    with pytest.raises(ValueError, match="generator or latents"):
+        pipe.generate_dp(None, {}, torch.zeros((1, 7)), torch.zeros((1, 7)), [])
+    with pytest.raises(ValueError, match="item 16"):
+        EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int8").generate_tp(None, {}, None,
+                                                                             None, [])
 
 
 # ------------------------------------------------------------ package rules

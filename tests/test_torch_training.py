@@ -401,9 +401,11 @@ def test_train_build_keeps_frozen_bf16_and_trainables_fp32():
                                    ["--random_init", "--dataloader_num_workers", "2"]])
 def test_train_main_refuses_unported_flags(flags, monkeypatch):
     """The dataset, validation and prefetch are ported (tests/test_torch_data.py);
-    with them, more than one card is still refused."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
+    with them, ranks that cannot share the micro-batch (the default 2 over
+    3) are refused before any group forms (data parallelism itself:
+    tests/test_torch_multicard.py)."""
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit, match=r"must be divisible by the device count \(3\)"):
         train_app.main(flags, device="cpu", base_cfg=TRAIN_CFG)
 
 
