@@ -230,9 +230,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
      adapters, fp32 with live adapters),
      each rank's launches of the five kernels against the prediction and
      its TP all-reduces against the count the code predicts
-     (``tp_all_reduces``); per rank the seconds (two ranks share the card:
-     not a speed-up), all-reduces and bytes; a ``{"multicard": ...}``
-     line. A failure in either rank fails the phase.
+     (``tp_all_reduces``); "int8" and "int8-static" ``generate_tp`` at
+     model=2, B=1 against this rank's single-process int8 image (each
+     recording its own table under int8-static) at MC_INT8_LEVEL_TOL, the
+     int8 products equal, the model group's collectives as predicted
+     (``tp_int8_collectives``), the table recorded under TP within
+     MC_INT8_TABLE_TOL of the single process's, and a planted fault (each
+     rank's own absmax) outside both limits; (c) four processes on cuda:0 and
+     ``gloo``, the (data 2, model 2) mesh: the DP x TP train step
+     (``shard_pipeline_frozen_tp``, ``make_train_step`` with a model
+     group) at a global micro-batch of 2 with live adapters, bf16 and fp32,
+     each group's gradient, the loss and d against (a)'s single-process
+     step, a planted fault (the LoRA merge's model-group sum left out)
+     rejected, the forward and backward collectives and their bytes as
+     predicted (``dptp_collectives``), the launches as the single
+     process's, the new state saved and resumed with
+     ``load_checkpoint_sharded`` bit for bit, seconds and peak memory a
+     rank; per rank the seconds (ranks share the card: not a speed-up),
+     all-reduces and bytes; a ``{"multicard": ...}`` line. A failure in
+     any rank fails the phase;
+  20. zoo (``zoo_phase``): the EfficientViT model zoo, fp32 with TF32 off:
+     ``create_seg_model`` b1 (cityscapes) and l2 (ade20k) at 512 px,
+     ``create_cls_model`` b3 and l2 at 224 px, seeded weights, B=1: the
+     card against the CPU within ZOO_REL_TOL, ms a forward, and each
+     ``port_fn`` on an upstream-named state dict synthesised from the tree
+     (``upstream_state_dict``) giving the tree back bit for bit; a
+     ``{"zoo": ...}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` record.
@@ -391,6 +414,14 @@ FLASH_SHAPES = [(bh, n, d) for bh in (2 * 8, 4 * 8, 6 * 8) for n, d in ((4096, 4
 # 2868 tokens, off the kernel's 128-key tile grid (a masked last tile).
 FLASH_SERVING_SHAPES = [(16, 2048, 40), (32, 2048, 40), (48, 2048, 40), (8, 4096, 40),
                         (16, 4096 - int(0.3 * 4096), 40)]
+# The DP x TP train step's per-rank shapes (multicard (c): one row a data
+# rank, 8 / 2 heads a model rank): the UNet and the lora_0 trunk BH=4, the
+# lora_1 trunk 8, the static trunk 12 (the forward); the UNet's up blocks
+# and the LoRA trunks, 4 and 8 (the backward). (8, 4096, 40) is timed
+# above with the serving shapes.
+FLASH_DPTP_SHAPES = [(4, 4096, 40), (12, 4096, 40), (4, 1024, 80), (8, 1024, 80),
+                     (12, 1024, 80)]
+FLASH_BWD_DPTP_SHAPES = [(bh, n, d) for bh in (4, 8) for n, d in ((4096, 40), (1024, 80))]
 # Checked, not timed: a ragged last key tile, and the widest and narrowest
 # head dims the dispatch rule sends to the kernel.
 FLASH_CHECK_SHAPES = [(2, 1000, 40), (2, 1024, 128), (2, 1024, 8)]
@@ -427,7 +458,7 @@ def kernel_phase(dev):
     records = []
 
     shapes = []
-    for bh, n, d in FLASH_SHAPES + FLASH_SERVING_SHAPES + FLASH_CHECK_SHAPES:
+    for bh, n, d in FLASH_SHAPES + FLASH_SERVING_SHAPES + FLASH_DPTP_SHAPES + FLASH_CHECK_SHAPES:
         q, k, v = (torch.randn((1, bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         scale = 1.0 / math.sqrt(d)
@@ -637,7 +668,7 @@ def flash_bwd_phase(dev, gen):
     from edgestyle_tpu_torch.ops import flash
 
     dq_shapes, dkv_shapes = [], []
-    for bh, n, d in FLASH_BWD_SHAPES + FLASH_BWD_CHECK_SHAPES:
+    for bh, n, d in FLASH_BWD_SHAPES + FLASH_BWD_DPTP_SHAPES + FLASH_BWD_CHECK_SHAPES:
         args = flash_bwd_inputs(gen, dev, bh, n, d)
         errs = flash_bwd_errors(args)
         err_txt = ", ".join(f"{k} max_abs_err={e:.3e} (tol {t:.3e}; max |ref| {m:.3e})"
@@ -4434,8 +4465,11 @@ def extract_phase(dev, card: str, clip_files: dict):
 # input). (b) two ranks that both name cuda:0 and gloo (NCCL refuses two
 # ranks on one device): generate_dp at B=2 (one row a rank) against (a)'s
 # single-process images, generate_tp at model=2, B=1, against the
-# single-process B=1 image, and one data-parallel train step at a global
-# micro-batch of 2 against (a)'s single-process step.
+# single-process B=1 image (exact, int8 and int8-static), and one
+# data-parallel train step at a global micro-batch of 2 against (a)'s
+# single-process step. (c) four ranks on cuda:0 over gloo, the (data 2,
+# model 2) mesh: the DP x TP train step against (a)'s single-process step,
+# and its sharded resume.
 MC_STEPS = 4
 MC_LATENT_SEED, MC_REQUEST_SEED, MC_DRAW_SEED = 5, 17, 9
 # The DP train step against the single-process step, --adam_epsilon 1
@@ -4467,6 +4501,34 @@ MC_TRAIN_RUNS = {"bf16": ("bf16", False), "bf16_live": ("bf16", True), "fp32": (
 # SERVE_MAX_TOL, over 20 steps there, MC_STEPS here).
 MC_LOSS_TOL = 1e-2
 MC_FP32_TOL = 1e-3
+MC_INT8_MODES = ("int8", "int8-static")
+# The int8-static table recorded under TP against the single process's, the
+# largest relative difference of a key's scale. Equal bit for bit on the
+# CPU (tests/test_torch_dptp.py); on the card the plain cross-attention's
+# batched bf16 P.V at the lora_1 trunk's (4 rows, 256 x 77 x 160) takes
+# another cuBLAS algorithm at 4 heads than at 8 and rounds up to 1.2e-4
+# apart, and int8's rounding of the next layers carries that to 1.9e-2 in
+# 52 of 583 keys (on an H100 80GB HBM3 at 700 W). A rank that records its own
+# share's absmax in place of the whole tensor's (the planted fault) must
+# leave this limit.
+MC_INT8_TABLE_TOL = 0.05
+# int8 generate_tp's image against the single process's, (mean, max) uint8
+# levels. "int8": (b)'s limits (the scales are dynamic, taken over the whole
+# tensors). "int8-static": each run records its own table, and the 52 keys
+# above move the images by 5.0480 mean and 42 max levels after MC_STEPS
+# steps, outside (b)'s limits; the planted fault (each rank's own absmax in
+# its table) by 8.1129 / 70 and 9.2733 / 76 on the two ranks (each the same
+# in every run on an H100 80GB HBM3 at 700 W). The limit lies between the
+# two readings, about a quarter from each.
+MC_INT8_LEVEL_TOL = {"int8": (SERVE_MEAN_TOL, SERVE_MAX_TOL), "int8-static": (6.5, 56)}
+# (c) the DP x TP train step on four ranks: (data, model) of each run, one
+# row a data rank, live trainables; held against (a)'s single-process step
+# as (b)'s DP step is (gradients per group, the loss and d); on the bf16
+# run a planted fault (the LoRA merge's model-group sum left out) must fail
+# the gradient check, and the new state is saved and resumed. Four fp32
+# ranks fit on the card (10.74 GiB a rank at peak), so fp32 runs on the
+# same mesh.
+MC_DPTP_RUNS = {"bf16_live": (2, 2), "fp32": (2, 2)}
 
 
 def tp_all_reduces(pipe, params, steps: int) -> int:
@@ -4485,6 +4547,70 @@ def tp_all_reduces(pipe, params, steps: int) -> int:
             + pipe.cfg.clip.num_layers)
 
 
+def tp_int8_collectives(pipe, params, steps: int, static: bool) -> int:
+    """The model group's collectives of one int8 generate_tp call, from the
+    code: each transformer block's three row-parallel Denses (to_out of
+    attn1 and attn2, ff.proj_out) sum their int32 accumulators, and on a
+    dynamic activation scale first max its absmax: 2 each under "int8", in
+    every model evaluation (the UNet and one trunk call a branch group);
+    under "int8-static" 2 each in the 5 calibration evaluations (recorded
+    scales are dynamic) and 1 in each step. The text tower runs whole."""
+    from edgestyle_tpu_torch.core.params import flatten
+
+    def blocks(tree):
+        return sum(1 for k in flatten(tree) if k[-3:] == ("attn1", "to_q", "kernel"))
+
+    per_eval = 3 * (blocks(params["unet"]) + len(pipe.mcn.groups)
+                    * blocks(params["controlnet"]["static"]))
+    return 2 * 5 * per_eval + steps * per_eval if static else 2 * steps * per_eval
+
+
+def dptp_collectives(pipe, unet, trainable, rows: int, act_bytes: int, tp_size: int) -> dict:
+    """The model group's collectives of one DP x TP micro-batch of ``rows``
+    local rows, from the code. Forward (ReduceFromModel): each transformer
+    block's three row-parallel outputs (rows, N, C) in the compute type, in
+    the UNet and in each branch group's trunk call (rows times its
+    branches), and each CLIP layer's fc2 output (rows, 77, 768). Backward
+    (CopyToModel): the gradients of those blocks' three column-parallel
+    inputs where they carry one (the UNet's up blocks, the LoRA trunks;
+    attn2's context is the frozen CLIP's and carries none), and of each
+    LoRA adapter leaf (fp32) on a kernel the model axis splits."""
+    from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.core.partitioning import tp_layout
+    from edgestyle_tpu_torch.models.unet import split_trunk_params
+
+    cfg = pipe.cfg
+    side = cfg.vae.sample_size // pipe.vae_downscale
+    levels = len(cfg.unet.block_out_channels)
+
+    def tokens(top):
+        i = int(top.rsplit("_", 1)[1]) if top.startswith(("down", "up")) else levels - 1
+        return (side >> (levels - 1 - i if top.startswith("up") else i)) ** 2
+
+    blocks = [(k[0], v.shape[0]) for k, v in flatten(unet).items()
+              if k[-3:] == ("attn1", "to_out", "kernel")]
+    trunk = [b for b in blocks if not b[0].startswith("up")]
+    up = [b for b in blocks if b[0].startswith("up")]
+
+    def act(bs, r):
+        return sum(3 * r * tokens(top) * c * act_bytes for top, c in bs)
+
+    lora = [g for g in pipe.mcn.groups if g.kind == "lora"]
+    sliced = tp_layout(split_trunk_params(unet), tp_size, cfg.unet.num_heads)
+    adapters = [(k, v) for k, v in flatten(trainable["lora_0"]).items()
+                if k[:-1] in sliced and v.ndim == 2]
+    clip = cfg.clip
+    return {
+        "forward": 3 * (len(blocks) + len(pipe.mcn.groups) * len(trunk)) + clip.num_layers,
+        "forward_bytes": act(blocks, rows) + sum(act(trunk, rows * len(g.positions))
+                                                 for g in pipe.mcn.groups)
+        + clip.num_layers * rows * clip.max_positions * clip.hidden_size * act_bytes,
+        "backward": 3 * (len(up) + len(lora) * len(trunk)) + len(lora) * len(adapters),
+        "backward_bytes": act(up, rows) + sum(act(trunk, rows * len(g.positions)) for g in lora)
+        + len(lora) * sum(4 * v.numel() for _, v in adapters),
+    }
+
+
 def _mc_request(pipe, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(MC_REQUEST_SEED)
@@ -4493,17 +4619,33 @@ def _mc_request(pipe, dev):
     return ids, neg, imgs
 
 
-def _mc_train_step(dev, mesh, run: str) -> dict:
+def _mc_train_step(dev, mesh, run: str, ckpt_root=None) -> dict:
     """One train step of MC_TRAIN_RUNS[run] from the trainer's full-width
     build: one global synthetic batch and its draws, this rank's rows of
     both with ``mesh`` (the DP step), all of both without. Returns the
     loss, d, the trainables before and after on the host, the seconds, the
-    launches and the bytes all-reduced."""
+    launches and the bytes all-reduced. On a mesh with a model axis above
+    1 (the DP x TP step): the frozen set sharded
+    (``shard_pipeline_frozen_tp``), the step's model-group collectives and
+    their prediction (``dptp_collectives``) and the peak memory; and,
+    given ``ckpt_root``, the step with the LoRA merge's model-group sum
+    left out (the planted fault) and the new state saved there and resumed
+    with ``load_checkpoint_sharded`` (held bit for bit)."""
+    import types
+
     from edgestyle_tpu_torch import kernels
     from edgestyle_tpu_torch.apps import train
     from edgestyle_tpu_torch.core import mesh as M
     from edgestyle_tpu_torch.core.device import make_generator
     from edgestyle_tpu_torch.core.params import flatten
+    from edgestyle_tpu_torch.core.partitioning import shard_pipeline_frozen_tp
+    from edgestyle_tpu_torch.models import unet as unet_module
+    from edgestyle_tpu_torch.ops import tp
+    from edgestyle_tpu_torch.training.checkpoint import (
+        load_checkpoint_sharded,
+        save_checkpoint,
+        states_equal,
+    )
     from edgestyle_tpu_torch.training.train_step import (
         make_optimizer,
         make_train_step,
@@ -4520,16 +4662,52 @@ def _mc_train_step(dev, mesh, run: str) -> dict:
     host = next(train.synthetic_loader(args))
     batch, draws = train.rank_batch(
         mesh, host, sample_draws(pipe, tcfg, host, make_generator(MC_DRAW_SEED, dev)))
-    step = make_train_step(pipe, tcfg, data_group=None if mesh is None
-                           else mesh.get_group(M.DATA_AXIS))
+    dptp = mesh is not None and M.axis_size(mesh, M.MODEL_AXIS) > 1
+    out = {}
+    if dptp:
+        cfg = pipe.cfg
+        out["predicted"] = dptp_collectives(
+            pipe, frozen["unet"], state["trainable"], batch["original"].shape[1],
+            2 if precision == "bf16" else 4, M.axis_size(mesh, M.MODEL_AXIS))
+        frozen = shard_pipeline_frozen_tp(mesh, frozen, {
+            "vae": 1, "clip": cfg.clip.num_heads, "unet": cfg.unet.num_heads,
+            "static": cfg.unet.num_heads})
+    if dptp:
+        step = make_train_step(pipe, tcfg, model_group=mesh.get_group(M.MODEL_AXIS))
+    else:
+        step = make_train_step(pipe, tcfg, data_group=None if mesh is None
+                               else mesh.get_group(M.DATA_AXIS))
     kernels.reset_launches()
     M.ALL_REDUCE_BYTES[0] = 0
+    tp.ALL_REDUCES[0] = tp.REDUCED_BYTES[0] = 0
+    tp.BACKWARD_ALL_REDUCES[0] = tp.BACKWARD_BYTES[0] = 0
+    torch.cuda.reset_peak_memory_stats()
     secs, (new, metrics) = _wall(lambda: step(state, frozen, batch, draws), 1)
     host_tree = lambda t: {k: v.cpu() for k, v in flatten(t).items()}  # noqa: E731
-    return {"loss": metrics["loss"].item(), "d": metrics["d"].item(), "s": secs,
-            "before": host_tree(state["trainable"]), "after": host_tree(new["trainable"]),
-            "exp_avg": host_tree(new["opt_state"]["exp_avg"]),
-            "launches": dict(kernels.LAUNCHES), "bytes": M.ALL_REDUCE_BYTES[0]}
+    out.update({"loss": metrics["loss"].item(), "d": metrics["d"].item(), "s": secs,
+                "before": host_tree(state["trainable"]), "after": host_tree(new["trainable"]),
+                "exp_avg": host_tree(new["opt_state"]["exp_avg"]),
+                "launches": dict(kernels.LAUNCHES), "bytes": M.ALL_REDUCE_BYTES[0],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if dptp:
+        out["tp"] = {"forward": tp.ALL_REDUCES[0], "forward_bytes": tp.REDUCED_BYTES[0],
+                     "backward": tp.BACKWARD_ALL_REDUCES[0],
+                     "backward_bytes": tp.BACKWARD_BYTES[0]}
+    if dptp and ckpt_root:
+        unet_module.tp = types.SimpleNamespace(copy_to_model=lambda x: x, size=tp.size,
+                                               index=tp.index)
+        try:
+            faulty, _ = step(state, frozen, batch, draws)
+        finally:
+            unet_module.tp = tp
+        out["fault_exp_avg"] = host_tree(faulty["opt_state"]["exp_avg"])
+        del faulty
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_root, new)
+        resumed = load_checkpoint_sharded(ckpt_root, new, mesh)
+        out["resume_s"] = time.perf_counter() - t0
+        out["resumed_bit_equal"] = states_equal(resumed, new)
+    return out
 
 
 def _multicard_rank(steps: int) -> dict:
@@ -4537,7 +4715,8 @@ def _multicard_rank(steps: int) -> dict:
     from edgestyle_tpu_torch import kernels
     from edgestyle_tpu_torch.core import mesh as M
     from edgestyle_tpu_torch.core.device import make_generator
-    from edgestyle_tpu_torch.ops import tp
+    from edgestyle_tpu_torch.ops import quant, tp
+    from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline
 
     # as main() sets them for this script's own process (cuDNN's default
     # would run the fp32 convs in TF32 here and not there)
@@ -4565,12 +4744,65 @@ def _multicard_rank(steps: int) -> dict:
     out["tp"], out["tp_launches"] = tpi.cpu(), dict(kernels.LAUNCHES)
     out["all_reduces"], out["tp_bytes"] = tp.ALL_REDUCES[0], tp.REDUCED_BYTES[0]
     out["all_reduces_predicted"] = tp_all_reduces(pipe, params, steps)
-    del pipe, params, dp, tpi
+    del dp, tpi
+    out["int8_tp"] = {}
+    request = (ids[:1], neg[:1], [im[:1] for im in imgs])
+
+    def generate(mode, table=None, tp_on=None, n=steps):
+        qpipe = EdgeStylePipeline(pipe.cfg, device=dev, quant=mode)
+        qpipe._int8_scales = table
+        quant.reset_counts()
+        tp.ALL_REDUCES[0] = 0
+        kw = dict(generator=make_generator(MC_LATENT_SEED, dev), num_inference_steps=n)
+        secs, img = _wall(lambda: qpipe(params, *request, **kw) if tp_on is None
+                          else qpipe.generate_tp(tp_on, params, *request, **kw), 1)
+        return {"s": secs, "image": img.cpu(), "counts": dict(quant.COUNTS),
+                "table": qpipe._int8_scales, "collectives": tp.ALL_REDUCES[0]}
+
+    for mode in MC_INT8_MODES:
+        # the single-process int8 generation in this process, then generate_tp
+        single = generate(mode)
+        rec = generate(mode, tp_on=tp_mesh)
+        rec.update(single=single, collectives_predicted=tp_int8_collectives(
+            pipe, params, steps, mode == "int8-static"))
+        if mode == "int8-static":
+            # the single process generating on the table recorded under TP
+            # (read: what is left once the tables agree), and the planted
+            # fault: generate_tp with each rank's own absmax of its share
+            # recorded in its table (the model group's max left out)
+            rec["single_on_tp_table"] = generate(mode, table=dict(rec["table"]))
+            max_over_model = tp.max_over_model
+            tp.max_over_model = lambda x: x
+            try:
+                rec["fault"] = generate(mode, tp_on=tp_mesh)
+            finally:
+                tp.max_over_model = max_over_model
+        out["int8_tp"][mode] = rec
+    del pipe, params
     torch.cuda.empty_cache()
 
     out["train"] = {}
     for run in MC_TRAIN_RUNS:
         out["train"][run] = _mc_train_step(dev, dp_mesh, run)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dptp_rank(ckpt_root: str) -> dict:
+    """One of (c)'s four ranks, all on cuda:0 over gloo: the DP x TP train
+    step of each MC_DPTP_RUNS run on its (data, model) mesh."""
+    from edgestyle_tpu_torch.core import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = M.init_distributed(torch.device("cuda", 0), backend="gloo")
+    out = {"rank": torch.distributed.get_rank(), "train": {}}
+    for run, spec in MC_DPTP_RUNS.items():
+        mesh = M.make_mesh(M.MeshSpec(*spec), dev)
+        # the planted fault and the sharded resume on the bf16 run
+        rec = _mc_train_step(dev, mesh, run, ckpt_root if run.startswith("bf16") else None)
+        rec["coords"] = (M.axis_index(mesh, M.DATA_AXIS), M.axis_index(mesh, M.MODEL_AXIS))
+        out["train"][run] = rec
         torch.cuda.empty_cache()
     return out
 
@@ -4600,6 +4832,14 @@ def _mc_update_diffs(dp: dict, single: dict) -> dict:
             "groups": groups, "grads": grads}
 
 
+def _table_rel(a: dict, b: dict):
+    """The largest relative difference of two int8-static tables' scales,
+    or "other keys"."""
+    if a.keys() != b.keys():
+        return "other keys"
+    return max(abs(a[k] / b[k] - 1) for k in b)
+
+
 def _level_diff(a, b):
     """(mean, max) |a - b| of two [0, 1] image batches in uint8 levels."""
     d = ((a.float() * 255).round() - (b.float() * 255).round()).abs()
@@ -4607,7 +4847,7 @@ def _level_diff(a, b):
 
 
 def multicard_phase(dev, card: str) -> dict:
-    """(a) and (b) above. Returns (b)'s rank 0 launches of each path."""
+    """(a), (b) and (c) above. Returns rank 0's launches of each path."""
     from edgestyle_tpu_torch.core import mesh as M
     from edgestyle_tpu_torch.core.device import make_generator
 
@@ -4704,6 +4944,59 @@ def multicard_phase(dev, card: str) -> dict:
         if r["all_reduces"] != r["all_reduces_predicted"]:
             fail(f"{tag}: {r['all_reduces']} TP all-reduces, the code predicts "
                  f"{r['all_reduces_predicted']}")
+        int8_rec = {}
+        for mode, t in r["int8_tp"].items():
+            static = mode == "int8-static"
+            ref = t["single"]
+            # each run records its own table under int8-static
+            mean_tol, max_tol = MC_INT8_LEVEL_TOL[mode]
+            check_images(t["image"], 1, f"{tag} {mode} generate_tp")
+            imean, imax = _level_diff(t["image"], ref["image"])
+            int8_rec[mode] = {
+                "s": t["s"], "single_s": ref["s"], "levels": [imean, imax],
+                "bit_equal": torch.equal(t["image"], ref["image"]), "counts": t["counts"],
+                "collectives": t["collectives"]}
+            print(f"{tag}: {mode} generate_tp model=2 B=1 {t['s']:.3f} s (single-process "
+                  f"{ref['s']:.3f} s), vs this rank's single-process {mode} image mean "
+                  f"{imean:.4f} max {imax:.0f} levels (tol {mean_tol}, {max_tol}; bit for bit "
+                  f"{int8_rec[mode]['bit_equal']}), int8 products {t['counts']} (single "
+                  f"{ref['counts']}), {t['collectives']} model-group collectives (predicted "
+                  f"{t['collectives_predicted']})", flush=True)
+            if static:
+                trel = _table_rel(t["table"], ref["table"])
+                frel = _table_rel(t["fault"]["table"], ref["table"])
+                smean, smax = _level_diff(t["image"], t["single_on_tp_table"]["image"])
+                fmean, fmax = _level_diff(t["fault"]["image"], ref["image"])
+                int8_rec[mode].update(
+                    table_bit_equal=t["table"] == ref["table"], table_max_rel=trel,
+                    fault_table_max_rel=frel, table_entries=len(t["table"]),
+                    levels_same_table=[smean, smax], fault_levels=[fmean, fmax])
+                print(f"{tag}: int8-static table recorded under TP, {len(t['table'])} keys: "
+                      f"bit for bit {t['table'] == ref['table']}, largest relative difference "
+                      f"{trel} (tol {MC_INT8_TABLE_TOL}); planted fault (each rank's own "
+                      f"absmax) table {frel}, image mean {fmean:.4f} max {fmax:.0f} levels "
+                      f"(must leave {mean_tol}, {max_tol}); on the same table (the single "
+                      f"process on the TP run's) mean {smean:.4f} max {smax:.0f} levels (read, "
+                      f"not held)", flush=True)
+            if t["image"].shape != ref["image"].shape or not (
+                    imean <= mean_tol and imax <= max_tol):
+                fail(f"{tag}: {mode} generate_tp off the single-process image by mean {imean}, "
+                     f"max {imax} levels (tol {mean_tol}, {max_tol})")
+            if t["counts"] != ref["counts"] or not ref["counts"]["dense"]:
+                fail(f"{tag}: {mode} generate_tp ran int8 products {t['counts']}, the single "
+                     f"process {ref['counts']}")
+            if t["collectives"] != t["collectives_predicted"]:
+                fail(f"{tag}: {mode} generate_tp made {t['collectives']} model-group "
+                     f"collectives, the code predicts {t['collectives_predicted']}")
+            if static and not (isinstance(trel, float) and trel <= MC_INT8_TABLE_TOL):
+                fail(f"{tag}: the int8-static table recorded under TP is off the single "
+                     f"process's by {trel} (tol {MC_INT8_TABLE_TOL})")
+            if static and isinstance(frel, float) and frel <= MC_INT8_TABLE_TOL:
+                fail(f"{tag}: the planted fault (each rank's own absmax) passed the table "
+                     f"check: {frel}")
+            if static and fmean <= mean_tol and fmax <= max_tol:
+                fail(f"{tag}: the planted fault (each rank's own absmax) passed the image "
+                     f"check: mean {fmean}, max {fmax} levels")
         if r["dp_launches"] != gen_launches or r["tp_launches"] != gen_launches:
             fail(f"{tag}: the generations' launches differ from the prediction {gen_launches}")
         fp32_step = {**TRAIN_LAUNCHES_PER_STEP, "gn_scale_shift": 0, "fused_gn_silu_conv3x3": 0}
@@ -4718,12 +5011,125 @@ def multicard_phase(dev, card: str) -> dict:
         rec[f"rank{r['rank']}"] = {
             "dp_s": r["dp_s"], "tp_s": r["tp_s"], "dp_levels": [dmean, dmax],
             "tp_levels": [tmean, tmax], "all_reduces": r["all_reduces"],
-            "tp_bytes": r["tp_bytes"], "replicate_s": r["replicate_s"],
+            "tp_bytes": r["tp_bytes"], "replicate_s": r["replicate_s"], "int8_tp": int8_rec,
             "train": {run: {"s": r["train"][run]["s"], "bytes": r["train"][run]["bytes"], **t}
                       for run, t in trains.items()}}
+
+    # (c): four gloo ranks on cuda:0, the DP x TP train step
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_dptp_")
+    atexit.register(shutil.rmtree, ckpt_root, True)
+    t0 = time.perf_counter()
+    dptp = M.run_ranks(_dptp_rank, 4, (ckpt_root,))
+    rec["dptp_wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt_root, True)
+    lora_groups = ("lora_0", "lora_1")
+    for r in dptp:
+        for run, spec in MC_DPTP_RUNS.items():
+            t = r["train"][run]
+            tag = f"multicard (c) rank {r['rank']} {run} DPxTP{spec} at {t['coords']}"
+            diffs = _mc_update_diffs(t, single[run])
+            checked = "fault_exp_avg" in t  # the planted fault and the resume
+            fault = _mc_update_diffs({**t, "exp_avg": t["fault_exp_avg"]}, single[run]) \
+                if checked else None
+            tol, loss_tol = (GRAD_TOL, MC_LOSS_TOL) if run.startswith("bf16") else (
+                MC_FP32_TOL, MC_FP32_TOL)
+            pred = t["predicted"]
+            print(f"{tag}: {t['s']:.3f} s a step (single-process {single[run]['s']:.3f} s; four "
+                  f"ranks share the card), peak {t['peak_gib']:.2f} GiB a rank, loss "
+                  f"{t['loss']:.6f} (single {single[run]['loss']:.6f}), gradient rel. L2 per "
+                  f"group { {g: round(v, 6) for g, v in diffs['grads'].items()} }; TP "
+                  f"collectives {t['tp']} (predicted {pred}), {t['bytes']} bytes over the "
+                  f"mesh; launches {t['launches']}", flush=True)
+            if checked:
+                print(f"{tag}: planted fault (no model-group sum in the LoRA merge): gradient "
+                      f"rel. L2 { {g: round(v, 4) for g, v in fault['grads'].items()} }; save "
+                      f"+ resume {t['resume_s']:.2f} s, bit for bit {t['resumed_bit_equal']}",
+                      flush=True)
+            if diffs["loss"] > loss_tol or diffs["d"] > loss_tol or not all(
+                    v <= tol for v in diffs["grads"].values()):
+                fail(f"{tag}: off the single-process step: loss and d {diffs['loss']}, "
+                     f"{diffs['d']} relative (tol {loss_tol}), gradient per group "
+                     f"{diffs['grads']} (tol {tol})")
+            if checked and all(fault["grads"][g] <= tol for g in lora_groups):
+                fail(f"{tag}: the planted fault (no model-group sum of the LoRA merge) passed "
+                     f"the gradient check: {fault['grads']}")
+            if t["tp"] != pred:
+                fail(f"{tag}: TP collectives {t['tp']}, the code predicts {pred}")
+            if checked and not t["resumed_bit_equal"]:
+                fail(f"{tag}: the sharded resume differs from the saved state")
+            if not all(torch.equal(v, dptp[0]["train"][run]["after"][k])
+                       for k, v in t["after"].items()):
+                fail(f"{tag}: the trainables differ from rank 0's")
+            want = TRAIN_LAUNCHES_PER_STEP if run.startswith("bf16") else {
+                **TRAIN_LAUNCHES_PER_STEP, "gn_scale_shift": 0, "fused_gn_silu_conv3x3": 0}
+            if t["launches"] != want:
+                fail(f"{tag}: launches {t['launches']}, the prediction {want}")
+            rec[f"dptp_rank{r['rank']}_{run}"] = {
+                "spec": list(spec), "coords": list(t["coords"]), "s": t["s"],
+                "peak_gib": t["peak_gib"], "loss": diffs["loss"], "d": diffs["d"],
+                "grads": diffs["grads"], "fault_grads": fault and fault["grads"],
+                "tp": t["tp"], "resume_s": t.get("resume_s"), "mesh_bytes": t["bytes"]}
     print(json.dumps({"multicard": rec}), flush=True)
     return {"generate_dp": ranks[0]["dp_launches"], "generate_tp": ranks[0]["tp_launches"],
-            "dp_training": ranks[0]["train"]["bf16"]["launches"]}
+            "dp_training": ranks[0]["train"]["bf16"]["launches"],
+            "dptp_training": dptp[0]["train"]["bf16_live"]["launches"]}
+
+
+# ------------------------------------------------------------------- zoo
+# The EfficientViT model zoo (models/efficientvit/zoo.py): seg and cls
+# models at their data sets' sizes, fp32 with TF32 off, seeded weights;
+# the card against the same code on the CPU within ZOO_REL_TOL of the
+# largest |logit| (the fp32 SAM-L2 check's limit: convolutions sum in
+# another order), and each port function on an upstream-named state dict
+# synthesised from the tree, bit for bit.
+ZOO_MODELS = [("seg", "b1", "cityscapes", 512), ("seg", "l2", "ade20k", 512),
+              ("cls", "b3", None, 224), ("cls", "l2", None, 224)]
+ZOO_REL_TOL = 1e-4
+ZOO_TIMED = 5
+
+
+def zoo_phase(dev, card: str) -> None:
+    from edgestyle_tpu_torch.core.device import make_generator
+    from edgestyle_tpu_torch.models.efficientvit import zoo
+
+    rec = {"card": card, "models": {}}
+    bad = []
+    for kind, name, dataset, size in ZOO_MODELS:
+        model, port = (zoo.create_seg_model(name, dataset) if kind == "seg"
+                       else zoo.create_cls_model(name))
+        params = model.init_params(make_generator(0, dev))
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        x = torch.randn((1, 3, size, size), generator=g, device=dev)
+        with torch.no_grad():
+            out = model(params, x)
+            ms, out = _wall(lambda: model(params, x), ZOO_TIMED)
+            cpu = model(_to(params, "cpu"), x.cpu())
+        err = (out.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
+        back = port(upstream_state_dict(params, port.rules), dev)
+        same = _trees_equal(back, params)
+        tag = f"{kind} {name}" + (f" {dataset}" if dataset else "")
+        r = {"size": size, "out": list(out.shape), "ms": ms * 1e3, "card_vs_cpu_rel": err,
+             "port_bit_equal": same, "finite": bool(torch.isfinite(out).all()),
+             "params": sum(v.numel() for v in _leaves(params))}
+        rec["models"][tag] = r
+        print(f"zoo {tag} ({card}): {size} px fp32, out {tuple(out.shape)}, {r['params']} params, "
+              f"{r['ms']:.3f} ms a forward (median of {ZOO_TIMED}), card vs CPU {err:.3e} of the "
+              f"largest |logit| (tol {ZOO_REL_TOL}), port_fn on the synthesised upstream state "
+              f"dict bit for bit {same}", flush=True)
+        if not (r["finite"] and err <= ZOO_REL_TOL and same):
+            bad.append(f"{tag}: finite {r['finite']}, card vs CPU {err}, port {same}")
+        del params, back
+        torch.cuda.empty_cache()
+    print(json.dumps({"zoo": rec}), flush=True)
+    if bad:
+        fail("zoo: " + "; ".join(bad))
+
+
+def _leaves(tree):
+    from edgestyle_tpu_torch.core.params import flatten
+
+    return flatten(tree).values()
 
 
 def main() -> int:
@@ -4844,6 +5250,9 @@ def main() -> int:
     t0 = time.perf_counter()
     multicard_launches = multicard_phase(dev, card)
     print(f"phase multicard: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    zoo_phase(dev, card)
+    print(f"phase zoo: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel's path: the generation for the forward kernels, training
     # for the backward ones (which generation never runs)
@@ -4882,6 +5291,8 @@ def main() -> int:
             fail(f"kernel {name} was never launched on the distiller's path")
         if by_path["dp_training"][name] == 0:
             fail(f"kernel {name} was never launched on the data-parallel train step")
+        if by_path["dptp_training"][name] == 0:
+            fail(f"kernel {name} was never launched on the DP x TP train step")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,8 @@ configuration on CPU ranks (``gloo``).
 
 from __future__ import annotations
 
+import tempfile
+
 import numpy as np
 import torch
 
@@ -34,8 +36,6 @@ DRYRUN_TINY = PipelineConfig(
     clip=CLIPTextConfig(vocab_size=100, hidden_size=24, num_layers=2, num_heads=2,
                         max_positions=7, intermediate_size=32),
     dtype="float32")
-NEXT_SLICE = ("the DP x TP train step (shard_pipeline_frozen_tp) and its sharded resume "
-              "(load_checkpoint_sharded) wait for the next slice (ROADMAP.md Queue 1 item 16)")
 
 
 def entry(device: DeviceLike = "cuda"):
@@ -64,18 +64,25 @@ def dryrun_multichip(n_devices: int) -> list:
     ``__graft_entry__.py``'s tiny configuration: the data-parallel train
     step (grad_accum 2, one sample per rank), the data-parallel distill
     step, ``generate_dp`` (B = n), then on the (n/2, 2) mesh the
-    tensor-parallel UNet forward and ``generate_tp``. Rank 0 prints one
-    line a stage and a last line naming what waits for the next slice;
-    returns those lines."""
+    tensor-parallel UNet forward, the DP x TP train step, the sharded
+    checkpoint's save and resume of its state (bit for bit on every rank)
+    and ``generate_tp``. Rank 0 prints one line a stage; returns those
+    lines."""
     from edgestyle_tpu_torch.core.mesh import run_ranks
 
-    return run_ranks(_dryrun_rank, n_devices, (n_devices,))[0]
+    with tempfile.TemporaryDirectory(prefix="dryrun_multichip_") as ckpt_root:
+        return run_ranks(_dryrun_rank, n_devices, (n_devices, ckpt_root))[0]
 
 
-def _dryrun_rank(n: int) -> list:
+def _dryrun_rank(n: int, ckpt_root: str) -> list:
     from edgestyle_tpu_torch.core import mesh as M
-    from edgestyle_tpu_torch.core.partitioning import shard_params_tp
+    from edgestyle_tpu_torch.core.partitioning import shard_params_tp, shard_pipeline_frozen_tp
     from edgestyle_tpu_torch.ops import tp
+    from edgestyle_tpu_torch.training.checkpoint import (
+        load_checkpoint_sharded,
+        save_checkpoint,
+        states_equal,
+    )
     from edgestyle_tpu_torch.training.distill import (
         DistillConfig,
         init_distill_state,
@@ -107,7 +114,7 @@ def _dryrun_rank(n: int) -> list:
               "static": params["controlnet"]["static"]}
     cfg = TrainConfig(grad_accum=2)
     trainable = init_trainable(pipe, make_generator(1, dev), params["unet"], lora_rank=4)
-    state = {"trainable": trainable, "opt_state": make_optimizer(cfg).init(trainable), "step": 0}
+    state0 = {"trainable": trainable, "opt_state": make_optimizer(cfg).init(trainable), "step": 0}
 
     g = np.random.default_rng(0)
     accum, mb = cfg.grad_accum, n  # one sample per rank
@@ -119,14 +126,15 @@ def _dryrun_rank(n: int) -> list:
             "clothes2": img(), "original_openpose": img(), "clothes_openpose": img(),
             "clothes_openpose2": img(), "input_ids": g.integers(1, 99, (accum, mb, 7))}
 
-    def local(host_batch, draws):
+    def local(host_batch, draws, on=mesh):
         b = host_batch["original"].shape[1]
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
-                 M.shard_batch(mesh, host_batch, axis=1).items()}
-        return batch, local_draws(draws, M.rows(mesh, b), b)
+                 M.shard_batch(on, host_batch, axis=1).items()}
+        return batch, local_draws(draws, M.rows(on, b), b)
 
-    batch, draws = local(host, sample_draws(pipe, cfg, host, make_generator(7, dev)))
-    state, metrics = make_train_step(pipe, cfg, data_group=group)(state, frozen, batch, draws)
+    global_draws = sample_draws(pipe, cfg, host, make_generator(7, dev))
+    batch, draws = local(host, global_draws)
+    state, metrics = make_train_step(pipe, cfg, data_group=group)(state0, frozen, batch, draws)
     if not torch.isfinite(metrics["loss"]):
         raise RuntimeError(f"DP train step: loss {metrics['loss']}")
     say(f"DP train step ok -- loss={float(metrics['loss']):.4f}, "
@@ -170,10 +178,26 @@ def _dryrun_rank(n: int) -> list:
         if not torch.isfinite(y).all():
             raise RuntimeError("TP UNet forward: not finite")
         say(f"TP(data={n // 2}, model=2) UNet forward ok")
+
+        heads = {"vae": 1, "clip": DRYRUN_TINY.clip.num_heads,
+                 "unet": DRYRUN_TINY.unet.num_heads, "static": DRYRUN_TINY.unet.num_heads}
+        frozen_tp = shard_pipeline_frozen_tp(mesh2, frozen, heads)
+        step2 = make_train_step(pipe, cfg, model_group=mesh2.get_group(M.MODEL_AXIS))
+        batch2, draws2 = local(host, global_draws, mesh2)
+        state2, metrics2 = step2(state0, frozen_tp, batch2, draws2)
+        if not torch.isfinite(metrics2["loss"]):
+            raise RuntimeError(f"DPxTP train step: loss {metrics2['loss']}")
+        say(f"DPxTP(data={n // 2}, model=2) train step ok -- loss={float(metrics2['loss']):.4f}")
+
+        save_checkpoint(ckpt_root, state2)
+        restored = load_checkpoint_sharded(ckpt_root, state2, mesh2)
+        if not states_equal(restored, state2):
+            raise RuntimeError("sharded checkpoint: the resumed state differs")
+        say(f"sharded checkpoint save/restore ok -- bit-identical resume into the "
+            f"DPxTP(data={n // 2}, model=2) layout on every rank")
         out2 = pipe.generate_tp(mesh2, params, ids, neg, imgs, generator=make_generator(2, dev),
                                 num_inference_steps=2)
         if out2.shape != (b, 3, 32, 32) or not torch.isfinite(out2).all():
             raise RuntimeError("generate_tp: wrong shape or not finite")
         say(f"DPxTP(data={n // 2}, model=2) generate ok -- B={b} over {n} ranks")
-    say(NEXT_SLICE)
     return lines

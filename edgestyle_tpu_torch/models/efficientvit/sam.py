@@ -419,14 +419,36 @@ def _conv_layer(rules, tp, fp, norm=True):
         _bn(rules, tp + r"\.norm", fp + ".norm")
 
 
-def _mb(rules, tp, fp, norms):
+def _mb(rules, tp, fp, norms=(True, True, True)):
+    """An MBConv (inverted, depthwise and pointwise ConvLayers)."""
     for name, norm in zip(("inverted_conv", "depth_conv", "point_conv"), norms):
         _conv_layer(rules, tp + rf"\.{name}", f"{fp}.{name}", norm)
 
 
-def _backbone_rules(rules, depth_list):
+def _fmb(rules, tp, fp):
+    """A FusedMBConv (spatial and pointwise ConvLayers)."""
+    for name in ("spatial_conv", "point_conv"):
+        _conv_layer(rules, tp + rf"\.{name}", f"{fp}.{name}")
+
+
+def _vit_block(rules, tp, fp):
+    """An EfficientViT block: LiteMLA (qkv, one aggregation scale, proj)
+    and its MBConv with fewer norms."""
+    cm, cf = tp + r"\.context_module\.main", fp + ".context_module"
+    _conv_layer(rules, cm + r"\.qkv", cf + ".qkv", norm=False)
+    rules += [(cm + r"\.aggreg\.0\.0\.weight", cf + ".aggreg_0_depth.kernel"),
+              (cm + r"\.aggreg\.0\.1\.weight", cf + ".aggreg_0_point.kernel")]
+    _conv_layer(rules, cm + r"\.proj", cf + ".proj")
+    _mb(rules, tp + r"\.local_module\.main", fp + ".local_module", (False, False, True))
+
+
+def _backbone_rules(rules, depth_list, tp: str = r"image_encoder\.backbone",
+                    fp: str = "image_encoder.backbone"):
+    """The large backbone (l0-l3) at torch prefix ``tp`` (a regex) and the
+    port's prefix ``fp``: SAM's image encoder by default, ``backbone`` in
+    the model zoo's seg and cls models."""
     d = depth_list
-    B, bo = r"image_encoder\.backbone\.stages", "image_encoder.backbone"
+    B, bo = tp + r"\.stages", fp
     _conv_layer(rules, B + r"\.0\.op_list\.0", f"{bo}.stage0_stem")
     for j in range(d[0]):
         for c in ("conv1", "conv2"):
@@ -434,21 +456,14 @@ def _backbone_rules(rules, depth_list):
                         f"{bo}.stage0_block_{j}.{c}")
     for sid in (1, 2, 3):
         for j in range(d[sid] + 1):
-            tp, fp = B + rf"\.{sid}\.op_list\.{j}\.main", f"{bo}.stage{sid}_block_{j}"
+            tpj, fpj = B + rf"\.{sid}\.op_list\.{j}\.main", f"{bo}.stage{sid}_block_{j}"
             if sid <= 2:
-                for c in ("spatial_conv", "point_conv"):
-                    _conv_layer(rules, tp + rf"\.{c}", f"{fp}.{c}")
+                _fmb(rules, tpj, fpj)
             else:  # MBConv with fewer norms
-                _mb(rules, tp, fp, (False, False, True))
+                _mb(rules, tpj, fpj, (False, False, True))
     _mb(rules, B + r"\.4\.op_list\.0\.main", f"{bo}.stage4_block_0", (False, False, True))
     for j in range(d[4]):
-        tp, fp = B + rf"\.4\.op_list\.{j + 1}", f"{bo}.stage4_vit_{j}"
-        cm, cf = tp + r"\.context_module\.main", fp + ".context_module"
-        _conv_layer(rules, cm + r"\.qkv", cf + ".qkv", norm=False)
-        rules += [(cm + r"\.aggreg\.0\.0\.weight", cf + ".aggreg_0_depth.kernel"),
-                  (cm + r"\.aggreg\.0\.1\.weight", cf + ".aggreg_0_point.kernel")]
-        _conv_layer(rules, cm + r"\.proj", cf + ".proj")
-        _mb(rules, tp + r"\.local_module\.main", fp + ".local_module", (False, False, True))
+        _vit_block(rules, B + rf"\.4\.op_list\.{j + 1}", f"{bo}.stage4_vit_{j}")
 
 
 def _sam_rules(cfg: SamConfig):
@@ -458,9 +473,7 @@ def _sam_rules(cfg: SamConfig):
     for i, fid in enumerate(("stage4", "stage3", "stage2")):
         _conv_layer(rules, rf"image_encoder\.neck\.input_ops\.{i}\.op_list\.0", f"{ne}.input_{fid}")
     for j in range(cfg.neck_depth):
-        for c in ("spatial_conv", "point_conv"):
-            _conv_layer(rules, rf"image_encoder\.neck\.middle\.op_list\.{j}\.main\.{c}",
-                        f"{ne}.middle_{j}.{c}")
+        _fmb(rules, rf"image_encoder\.neck\.middle\.op_list\.{j}\.main", f"{ne}.middle_{j}")
     _conv_layer(rules, r"image_encoder\.neck\.output_ops\.0\.op_list\.0",
                 f"{ne}.output_sam_encoder", norm=False)
     _weight_bias(rules, r"image_encoder\.norm", "image_encoder.norm", "scale")

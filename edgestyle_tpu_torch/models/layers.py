@@ -64,20 +64,28 @@ def dense(p, x: torch.Tensor, features: int, dtype, use_bias: bool = True) -> to
 
 def column_parallel(p, name: str, features: int) -> bool:
     """True where Dense ``name`` of ``p`` holds this rank's rows of a
-    column-parallel kernel (core/partitioning.py) inside
-    ``tp.model_parallel``; always False outside it."""
-    return tp.group() is not None and p[name]["kernel"].shape[0] != features
+    column-parallel kernel (core/partitioning.py; a pre-quantised kernel's
+    int8 rows too) inside ``tp.model_parallel``; always False outside it."""
+    if tp.group() is None:
+        return False
+    w = p[name]["kernel"]
+    return (w.q if quant.is_prequant(w) else w).shape[0] != features
 
 
 def row_dense(p, x: torch.Tensor, features: int, dtype, sharded: bool) -> torch.Tensor:
     """The Dense after a column-parallel one. With ``sharded`` (``x`` holds
     this rank's share of the features, the kernel the matching columns) the
     partial products are all-reduced over the model group and the bias is
-    added once, after the sum; otherwise :func:`dense`."""
+    added once, after the sum; under int8, where the single process's Dense
+    at the global width would quantise, the int32 products are
+    (ops/quant.py::quant_dense_row_parallel). Otherwise :func:`dense`."""
     if not sharded:
         return dense(p, x, features, dtype)
     w = param(p, "kernel", (features, x.shape[-1]))
     b = param(p, "bias", (features,), "zeros")
+    if quant.is_prequant(w) or (quant.active() and quant.dense_quantizable(
+            x, features, in_features=x.shape[-1] * tp.size())):
+        return quant.quant_dense_row_parallel(x, w, b, dtype)
     return tp.reduce_from_model(F.linear(cast(x, dtype), cast(w, dtype))) + cast(b, dtype)
 
 

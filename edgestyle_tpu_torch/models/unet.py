@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from edgestyle_tpu_torch.core.params import flatten, sub, unflatten
+from edgestyle_tpu_torch.core.partitioning import kernel_split
 from edgestyle_tpu_torch.core.porting import KeyMapper
 from edgestyle_tpu_torch.models.layers import (
     conv,
@@ -30,6 +31,7 @@ from edgestyle_tpu_torch.models.layers import (
     transformer_2d,
     upsample,
 )
+from edgestyle_tpu_torch.ops import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,7 +288,19 @@ def merge_lora(trunk_params: Dict, lora_params: Dict, scale: float = 1.0) -> Dic
     tree; untouched leaves are shared, not copied. Linear: up @ down; conv:
     einsum('or,rihw->oihw'), the composition of the k x k down conv and the
     1x1 up conv, kept channels_last (the fused conv kernel reads that
-    layout)."""
+    layout).
+
+    Inside ``ops.tp.model_parallel`` a linear kernel smaller than its
+    adapter's (out, in) is this rank's slice of a tensor-parallel kernel:
+    it takes the same slice of the full delta, by the rule it was sliced by
+    (core/partitioning.py::kernel_split: GEGLU's proj_in per half), so the
+    merged slice is the single process's merged kernel, sliced; the slice
+    is taken of ``up``'s rows (column-parallel) or ``down``'s columns
+    (row-parallel) before the product. Its adapter
+    leaves pass through ``CopyToModel`` first: each rank's gradient of them
+    is a partial sum over its slice, which the backward sums over the model
+    group. Every other adapter, and every other trainable, already gets its
+    whole gradient on each rank."""
     def walk(node, prefix=()):
         out = {}
         for k, v in node.items():
@@ -303,6 +317,16 @@ def merge_lora(trunk_params: Dict, lora_params: Dict, scale: float = 1.0) -> Dic
             delta = torch.einsum("or,rihw->oihw", lp["up"], lp["down"]) * scale
             merged[path] = (base + delta.to(base.dtype)).contiguous(
                 memory_format=torch.channels_last)
+        elif tuple(base.shape) != (lp["up"].shape[0], lp["down"].shape[1]):
+            up, down = tp.copy_to_model(lp["up"]), tp.copy_to_model(lp["down"])
+            split = kernel_split(path, (up.shape[0], down.shape[1]), tp.size())
+            # the slice before the product: up's rows of a column-parallel
+            # kernel, down's columns of a row-parallel one
+            if split.dim == 0:
+                up = split.take(up, tp.index(), tp.size())
+            else:
+                down = split.take(down, tp.index(), tp.size())
+            merged[path] = base + ((up @ down) * scale).to(base.dtype)
         else:
             delta = (lp["up"] @ lp["down"]) * scale
             merged[path] = base + delta.to(base.dtype)

@@ -43,6 +43,15 @@ they stay plain leaves, but they are 1x1 convs with Cin, Cout >= 64 and so
 run int8 dynamically even under ``int8-static`` (without a key, never
 recorded), as JAX's interceptor does whatever its docstring says.
 
+Under tensor parallelism (ops/tp.py, ``generate_tp``) the weights are
+quantised whole and then sliced (core/partitioning.py::local_shard), and a
+row-parallel Dense, whose input and kernel hold this rank's share of the
+features, runs :func:`quant_dense_row_parallel`: the activation's absmax
+and, for a plain kernel, each row's absmax are maxed over the model group
+before the scales are taken, the int32 accumulators are summed over it
+(exact) and dequantised once. Every scale, accumulator and count is then
+the single process's.
+
 Scales and recording are module-level state, as in JAX: all device work of
 a generation runs on one thread. ``COUNTS`` counts the int8 products by
 kind, where they are computed, so a caller can see that a run quantised.
@@ -55,6 +64,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from edgestyle_tpu_torch.ops import tp
 
 # ops smaller than this do not earn their requant overhead and carry most
 # of the numeric risk (zero-conv heads of small configs, time MLPs)
@@ -76,20 +87,29 @@ def _div(x: torch.Tensor, s) -> torch.Tensor:
     return x / s
 
 
-def quantize_weight(w: torch.Tensor, contract_dims: Tuple[int, ...]):
+def quantize_weight(w: torch.Tensor, contract_dims: Tuple[int, ...], sharded: bool = False):
     """Symmetric per-output-channel int8: ``contract_dims`` are the dims the
     product reduces over (all but the output-feature dim). Returns (q int8
-    in w's layout and memory format, s fp32 with w's rank, keepdim)."""
+    in w's layout and memory format, s fp32 with w's rank, keepdim). With
+    ``sharded`` ``w`` holds this rank's share of the contracted dims and
+    each row's absmax is the max over the model group: the full kernel's."""
     w32 = w.float()
-    s = _div(torch.amax(w32.abs(), dim=contract_dims, keepdim=True), 127.0)
-    s = torch.clamp_min(s, 1e-12)
+    absmax = torch.amax(w32.abs(), dim=contract_dims, keepdim=True)
+    if sharded:
+        absmax = tp.max_over_model(absmax)
+    s = torch.clamp_min(_div(absmax, 127.0), 1e-12)
     return torch.round(w32 / s).to(torch.int8), s
 
 
-def quantize_activation(x: torch.Tensor):
-    """Symmetric per-tensor dynamic int8: (q, 0-d fp32 scale on x's device)."""
+def quantize_activation(x: torch.Tensor, sharded: bool = False):
+    """Symmetric per-tensor dynamic int8: (q, 0-d fp32 scale on x's device).
+    With ``sharded`` ``x`` is this rank's share and the absmax is the max
+    over the model group: the whole tensor's."""
     x32 = x.float()
-    s = torch.clamp_min(_div(x32.abs().amax(), 127.0), 1e-12)
+    absmax = x32.abs().amax()
+    if sharded:
+        absmax = tp.max_over_model(absmax)
+    s = torch.clamp_min(_div(absmax, 127.0), 1e-12)
     return torch.round(x32 / s).to(torch.int8), s
 
 
@@ -131,12 +151,12 @@ def _static_scale(key: str, device: torch.device) -> torch.Tensor:
     return s
 
 
-def activation_to_int8(x: torch.Tensor, key: Optional[str] = None):
+def activation_to_int8(x: torch.Tensor, key: Optional[str] = None, sharded: bool = False):
     """Quantise an activation in the current mode: recording -> dynamic and
     collected; a static table hit -> that scale, clipped to +-127;
-    otherwise dynamic."""
+    otherwise dynamic. ``sharded``: :func:`quantize_activation`'s."""
     if _RECORDER is not None and key is not None:
-        q, s = quantize_activation(x)
+        q, s = quantize_activation(x, sharded)
         prev = _RECORDER.get(key)
         _RECORDER[key] = s if prev is None else torch.maximum(prev, s)
         return q, s
@@ -144,7 +164,7 @@ def activation_to_int8(x: torch.Tensor, key: Optional[str] = None):
         s = _static_scale(key, x.device)
         q = torch.clamp(torch.round(x.float() / s), -127.0, 127.0).to(torch.int8)
         return q, s
-    return quantize_activation(x)
+    return quantize_activation(x, sharded)
 
 
 @contextlib.contextmanager
@@ -351,6 +371,27 @@ def quant_dense(x: torch.Tensor, kernel, bias: Optional[torch.Tensor],
     return dequantize(acc, sx, qk.s, bias, dtype)
 
 
+def quant_dense_row_parallel(x: torch.Tensor, kernel, bias: Optional[torch.Tensor],
+                             dtype: torch.dtype) -> torch.Tensor:
+    """int8 row-parallel Dense inside ``tp.model_parallel``: ``x`` (..., in/tp)
+    holds this rank's share of the features and ``kernel`` the matching
+    columns (a sliced :class:`QuantKernel` keeps the full kernel's scales;
+    a plain shard is quantised with its rows' absmax maxed over the model
+    group). The activation scale is the whole tensor's (its absmax maxed
+    over the group, or the static table's), the int32 accumulators of the
+    shards are summed over the group, exactly, and dequantised once with
+    the bias: the single process's int8 Dense, bit for bit."""
+    if is_prequant(kernel):
+        qk = kernel
+    else:
+        q, s = quantize_weight(kernel, (1,), sharded=True)
+        qk = QuantKernel(q, s.reshape(-1))
+    qx, sx = activation_to_int8(x, qk.key or None, sharded=True)
+    acc = tp.sum_from_model(dense_int32(qx, qk))
+    COUNTS["dense"] += 1
+    return dequantize(acc, sx, qk.s, bias, dtype)
+
+
 def dequantized_dense(x: torch.Tensor, kernel: QuantKernel, bias: Optional[torch.Tensor],
                       dtype: torch.dtype) -> torch.Tensor:
     """A pre-quantised Dense on a (B, C) vector batch: the exact fp32 product
@@ -364,12 +405,17 @@ def dequantized_dense(x: torch.Tensor, kernel: QuantKernel, bias: Optional[torch
 
 def conv_quantizable(x: torch.Tensor, features: int) -> bool:
     """JAX's ``_conv_quantizable`` for the port's convs (no groups or
-    dilation): a 4-D input with Cin and Cout >= MIN_QUANT_CHANNELS."""
+    dilation): a 4-D input with Cin and Cout >= MIN_QUANT_CHANNELS. No
+    rule of core/partitioning.py splits a conv, so Cin is the global
+    width under tensor parallelism too."""
     return x.ndim == 4 and min(x.shape[1], features) >= MIN_QUANT_CHANNELS
 
 
-def dense_quantizable(x: torch.Tensor, features: int) -> bool:
+def dense_quantizable(x: torch.Tensor, features: int, in_features: Optional[int] = None) -> bool:
     """JAX's ``_dense_quantizable``: token or spatial matmuls only ((B, C)
-    vectors are latency-trivial and precision-sensitive)."""
-    return (x.ndim >= 3 and min(x.shape[-1], features) >= MIN_QUANT_CHANNELS
+    vectors are latency-trivial and precision-sensitive). ``in_features``:
+    the global input width where ``x`` holds a share of it (a row-parallel
+    Dense), as GSPMD's program sees the layer; default ``x.shape[-1]``."""
+    width = x.shape[-1] if in_features is None else in_features
+    return (x.ndim >= 3 and min(width, features) >= MIN_QUANT_CHANNELS
             and x.shape[-2] >= 64)

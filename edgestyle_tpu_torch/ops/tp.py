@@ -7,9 +7,13 @@ forward, identity backward) on the partial sums of a row-parallel Dense.
 The layers (models/layers.py, models/clip_text.py) reach them only while
 :func:`model_parallel` names a group and only where their kernels hold a
 shard (core/partitioning.py); with no group they run as they did, with no
-collective. ``ALL_REDUCES`` counts the forward all-reduces (chip_smoke
-holds it to the count the code predicts) and ``REDUCED_BYTES`` their
-bytes.
+collective. ``ALL_REDUCES`` counts the forward collectives of the model
+group and ``REDUCED_BYTES`` their bytes, ``BACKWARD_ALL_REDUCES`` and
+``BACKWARD_BYTES`` those of :class:`CopyToModel`'s backward (chip_smoke
+holds all four to the counts the code predicts). Under int8 serving a
+row-parallel Dense sums its int32 accumulators (:func:`sum_from_model`,
+exact) after :func:`max_over_model` has made its activation scale the
+whole tensor's; both count as forward collectives.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch.distributed as dist
 _GROUP: Optional[dist.ProcessGroup] = None
 ALL_REDUCES = [0]
 REDUCED_BYTES = [0]
+BACKWARD_ALL_REDUCES = [0]
+BACKWARD_BYTES = [0]
 
 
 @contextlib.contextmanager
@@ -41,9 +47,24 @@ def group() -> Optional[dist.ProcessGroup]:
     return _GROUP
 
 
-def _all_reduce(x: torch.Tensor, grp) -> torch.Tensor:
-    dist.all_reduce(x, group=grp)
+def index() -> int:
+    """This rank's coordinate in the active model group."""
+    return dist.get_rank(_require())
+
+
+def size() -> int:
+    """The ranks of the active model group, 1 outside :func:`model_parallel`."""
+    return 1 if _GROUP is None else dist.get_world_size(_GROUP)
+
+
+def _all_reduce(x: torch.Tensor, grp, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(x, op=op, group=grp)
     return x
+
+
+def _count(x: torch.Tensor) -> None:
+    ALL_REDUCES[0] += 1
+    REDUCED_BYTES[0] += x.numel() * x.element_size()
 
 
 class CopyToModel(torch.autograd.Function):
@@ -54,14 +75,15 @@ class CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        BACKWARD_ALL_REDUCES[0] += 1
+        BACKWARD_BYTES[0] += grad.numel() * grad.element_size()
         return _all_reduce(grad.clone(), ctx.grp), None
 
 
 class ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, grp):
-        ALL_REDUCES[0] += 1
-        REDUCED_BYTES[0] += x.numel() * x.element_size()
+        _count(x)
         return _all_reduce(x.clone(), grp)
 
     @staticmethod
@@ -75,6 +97,20 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return ReduceFromModel.apply(x, _require())
+
+
+def sum_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of a tensor with no gradient (int8's
+    int32 accumulators: an exact sum), in place."""
+    _count(x)
+    return _all_reduce(x, _require())
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the model group (an activation's absmax, a
+    weight shard's per-row absmax), in place."""
+    _count(x)
+    return _all_reduce(x, _require(), dist.ReduceOp.MAX)
 
 
 def _require() -> dist.ProcessGroup:

@@ -61,14 +61,18 @@ from edgestyle_tpu_torch.models.unet import (
 )
 from edgestyle_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from edgestyle_tpu_torch.ops import tp
-from edgestyle_tpu_torch.ops.quant import quantize_denoise_params, quantize_intercept, recording
+from edgestyle_tpu_torch.ops.quant import (
+    is_prequant,
+    quantize_denoise_params,
+    quantize_intercept,
+    recording,
+)
 from edgestyle_tpu_torch.ops.tome import ToMeConfig
 from edgestyle_tpu_torch.schedulers.ddpm import NoiseSchedule
 from edgestyle_tpu_torch.schedulers.dpmsolver import DPMSolverScheduler
 from edgestyle_tpu_torch.schedulers.lcm import LCMScheduler
 from edgestyle_tpu_torch.schedulers.unipc import UniPCScheduler
 
-ROADMAP_ITEM_16 = "ROADMAP.md Queue 1 item 16"
 DEFAULT_STEPS = 20
 QUANT_MODES = ("none", "int8", "int8-static")
 SCHEDULERS = {"unipc": UniPCScheduler, "dpm++": DPMSolverScheduler,
@@ -545,16 +549,29 @@ class EdgeStylePipeline:
         ``ops.tp.model_parallel``: attention on num_heads / tp local heads,
         one all-reduce after each row-parallel Dense (3 a transformer
         block, 1 a CLIP layer). The result equals the single-process one up
-        to the reduction order. The knobs pass through; int8 serving does
-        not combine with the sharded kernels and raises ValueError."""
-        if self.quant != "none":
-            raise ValueError(f"generate_tp does not combine with int8 serving "
-                             f"(quant={self.quant!r}): the per-channel weight scales and "
-                             f"the activation scales would be taken over shards "
-                             f"({ROADMAP_ITEM_16})")
+        to the reduction order. The knobs pass through.
+
+        Under int8 the denoise weights are quantised whole first
+        (:meth:`_quantized`) and then sliced, so every rank keeps the full
+        kernels' per-channel scales (core/partitioning.py::local_shard),
+        and each row-parallel Dense runs its int8 product on its shard with
+        the whole activation's scale and sums the int32 accumulators
+        (ops/quant.py::quant_dense_row_parallel): the int8 products are
+        the single process's, and the denoise step and an "int8-static"
+        table recorded here are too wherever the attentions on num_heads /
+        tp heads round as on all of them (bit for bit on the CPU; on the
+        card cuBLAS may pick another algorithm for the smaller batched
+        GEMM, and int8's roundings carry the last bit on). The text tower
+        stays whole: it runs outside the quantised scope, and its
+        row-parallel sums, rounded apart from the single process's, would
+        move every activation scale taken downstream of the prompt."""
+        int8 = self.quant != "none"
+        if int8:
+            params = self._quantized(params)
         heads = {"unet": self.cfg.unet.num_heads, "controlnet": self.cfg.unet.num_heads,
                  "clip": self.cfg.clip.num_heads, "vae": 1}
-        local = {k: shard_params_tp(mesh, v, num_heads=heads.get(k)) for k, v in params.items()}
+        local = {k: v if int8 and k == "clip" else shard_params_tp(mesh, v, heads.get(k))
+                 for k, v in params.items()}
         with tp.model_parallel(mesh.get_group(MODEL_AXIS)):
             return self.generate_dp(mesh, local, prompt_ids, negative_prompt_ids, cond_images,
                                     **kwargs)
@@ -611,8 +628,12 @@ class EdgeStylePipeline:
         """:func:`quantize_denoise_params` of ``params``, whose int8 UNet and
         ControlNet trees are kept for the next call while those leaves are
         the same tensors at the same version counters (a server's weights):
-        a leaf swapped or written in place quantises them again."""
+        a leaf swapped or written in place quantises them again. A tree
+        that already holds int8 kernels (``generate_tp``'s slices of the
+        quantised weights) is returned as it is."""
         leaves = list(flatten({"u": params["unet"], "c": params["controlnet"]}).values())
+        if any(is_prequant(v) for v in leaves):
+            return params
         versions = [_version(t) for t in leaves]
         held = self._int8_weights
         if (held is None or None in versions or held[1] != versions

@@ -24,6 +24,12 @@ clipping -> Prodigy (or AdamW).
   each rank takes its rows of every micro-batch and of the global draws,
   and one all-reduce averages the gradients and losses before the
   optimizer, as the JAX step's batch sharding does through GSPMD.
+* DP x TP (``model_group`` in place of ``data_group``): the frozen set is each rank's slices
+  (core/partitioning.py::shard_pipeline_frozen_tp), the trainables whole;
+  the loss runs inside ``ops.tp.model_parallel``, where the LoRA merge
+  slices each adapter's delta like its kernel and sums those adapters'
+  gradients over the model group (models/unet.py::merge_lora), and the
+  average runs over every rank. A rank's rows follow its data coordinate.
 
 The state is a dict {trainable, opt_state, step}; ``step`` is a host int.
 Batches are dicts of (grad_accum, micro_bs, ...) tensors, images NCHW.
@@ -32,6 +38,7 @@ Batches are dicts of (grad_accum, micro_bs, ...) tensors, images NCHW.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 import torch
@@ -46,6 +53,7 @@ from edgestyle_tpu_torch.models.unet import (
     init_lora_params,
     split_trunk_params,
 )
+from edgestyle_tpu_torch.ops import tp
 from edgestyle_tpu_torch.schedulers.ddpm import (
     DeviceSchedule,
     NoiseSchedule,
@@ -254,7 +262,7 @@ def local_draws(draws: List[Dict], sl: slice, b: int) -> List[Dict]:
     return [{k: take(k, v) for k, v in d.items()} for d in draws]
 
 
-def make_train_step(pipe, cfg: TrainConfig, data_group=None):
+def make_train_step(pipe, cfg: TrainConfig, data_group=None, model_group=None):
     """Returns ``train_step(state, frozen, batch, draws) -> (state,
     metrics)``; ``draws`` is :func:`sample_draws`' list, one per
     micro-batch. metrics: {'loss': mean micro-batch loss, 'd': Prodigy's d
@@ -264,12 +272,29 @@ def make_train_step(pipe, cfg: TrainConfig, data_group=None):
     rows of every micro-batch and of the draws (:func:`local_draws`); the
     gradients and the losses are averaged over the group in one
     all-reduce before the clipping, so the clipping and Prodigy's d see
-    the global gradient, and the state stays the same on every rank."""
+    the global gradient, and the state stays the same on every rank.
+
+    With ``model_group`` in its place (DP x TP; passing both raises),
+    ``frozen`` holds this rank's tensor-parallel slices
+    (core/partitioning.py::shard_pipeline_frozen_tp) and each micro-batch's
+    loss runs inside ``ops.tp.model_parallel`` (the recomputation of
+    ``remat`` too): each rank of a model group gets the same loss and the
+    whole gradient of every trainable. The one all-reduce then averages
+    over every rank of the mesh (the default group: core/mesh.py::make_mesh
+    spans them all), the data axis's mean with the model group's copies
+    folded in: the copies are equal in exact arithmetic, but each process's
+    convolutions and GEMMs may take other library algorithms and round
+    apart, and the whole mesh's sum gives every rank the same bits, so the
+    trainables stay one state."""
+    if data_group is not None and model_group is not None:
+        raise ValueError("make_train_step: under a model_group the step averages over every "
+                         "rank of the mesh; pass no data_group")
     dsched = SCHEDULE.to(pipe.device)
     opt = make_optimizer(cfg)
 
     def loss_fn(trainable, frozen, mb, dr):
-        return controlnet_loss_fn(trainable, frozen, pipe, dsched, cfg, mb, dr)
+        with tp.model_parallel(model_group) if model_group is not None else nullcontext():
+            return controlnet_loss_fn(trainable, frozen, pipe, dsched, cfg, mb, dr)
 
     def grads_of(trainable, frozen, mb, dr):
         leaves = {k: v.detach().requires_grad_(True) for k, v in flatten(trainable).items()}
@@ -297,7 +322,9 @@ def make_train_step(pipe, cfg: TrainConfig, data_group=None):
                                    draws[i])
                 grads = {k: a + g[k] / cfg.grad_accum for k, a in grads.items()}
                 losses.append(loss)
-        if data_group is not None:
+        if model_group is not None:
+            grads, losses = all_mean_grads(grads, losses, None)
+        elif data_group is not None:
             grads, losses = all_mean_grads(grads, losses, data_group)
         updates, opt_state = opt.update(unflatten(grads), state["opt_state"], trainable)
         new_state = {"trainable": apply_updates(trainable, updates), "opt_state": opt_state,

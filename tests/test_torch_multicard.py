@@ -302,7 +302,8 @@ def test_train_main_refuses_a_micro_batch_the_ranks_cannot_share(monkeypatch):
 # ---------------------------------------------------------- (6) dryrun
 def test_dryrun_multichip_runs_its_stages():
     lines = dryrun_multichip(4)
-    assert [line.split(": ", 1)[1].split(" ok")[0] for line in lines[:5]] == [
+    assert [line.split(": ", 1)[1].split(" ok")[0] for line in lines] == [
         "DP train step", "DP distill step", "DP batched generate",
-        "TP(data=2, model=2) UNet forward", "DPxTP(data=2, model=2) generate"]
-    assert "wait for the next slice" in lines[-1] and len(lines) == 6
+        "TP(data=2, model=2) UNet forward", "DPxTP(data=2, model=2) train step",
+        "sharded checkpoint save/restore", "DPxTP(data=2, model=2) generate"]
+    assert "bit-identical resume" in lines[-2]

@@ -20,7 +20,7 @@ from edgestyle_tpu.pipelines.tryon import EdgeStylePipeline as JPipeline
 from edgestyle_tpu.schedulers.ddpm import NoiseSchedule as JSchedule
 from edgestyle_tpu.schedulers.unipc import UniPCScheduler as JUniPC
 from edgestyle_tpu_torch.core.device import make_generator
-from edgestyle_tpu_torch.core.porting import from_jax_params
+from edgestyle_tpu_torch.core.porting import from_jax_params, to_jax_params
 from edgestyle_tpu_torch.models.clip_text import CLIPTextConfig
 from edgestyle_tpu_torch.models.vae import VAEConfig
 from edgestyle_tpu_torch.pipelines.tryon import EdgeStylePipeline, PipelineConfig
@@ -128,8 +128,7 @@ def test_pipeline_init_and_generate_on_cpu():
 def test_pipeline_rejects_unported_knobs():
     """The multi-card generators refuse what they cannot do: a DP call with
     neither a generator nor latents (the ranks could not draw the same
-    noise), TP under int8 (it names its ROADMAP item, 16); the cache and
-    cfg_interval knobs are ported, and raise the JAX
+    noise); the cache and cfg_interval knobs are ported, and raise the JAX
     pipeline's ValueErrors on bad values before reading any input; int8 is
     ported (tests/test_torch_quant.py), and an unknown quant mode raises
     ValueError as in JAX (tests/test_quant.py)."""
@@ -142,9 +141,28 @@ def test_pipeline_rejects_unported_knobs():
         EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int4")
     with pytest.raises(ValueError, match="generator or latents"):
         pipe.generate_dp(None, {}, torch.zeros((1, 7)), torch.zeros((1, 7)), [])
-    with pytest.raises(ValueError, match="item 16"):
-        EdgeStylePipeline(TINY_PIPE, device="cpu", quant="int8").generate_tp(None, {}, None,
-                                                                             None, [])
+
+
+def test_generate_tp_runs_int8():
+    """int8 serving under tensor parallelism: two model ranks give the
+    single process's int8 image and int8 products, bit for bit, at a width
+    where the layers quantise (tests/test_torch_dptp.py holds int8-static,
+    the table and the collectives)."""
+    from edgestyle_tpu_torch.core.mesh import run_ranks
+    from tests import torch_multicard_workers as W
+    from tests.test_torch_quant import CFG
+
+    params = perturb(to_jax_params(EdgeStylePipeline(CFG, device="cpu").init_params(
+        make_generator(0, "cpu"))), np.random.default_rng(2))
+    rng = np.random.default_rng(3)
+    ids, neg = rng.integers(1, 99, size=(2, 1, CFG.clip.max_positions))
+    imgs = [(rng.standard_normal((1, 3, 32, 32)) * 0.5).astype(np.float32) for _ in CFG.pattern]
+    inputs = (ids, neg, imgs, rng.standard_normal((1, 4, 16, 16)).astype(np.float32))
+    single = W.int8_tp_run(CFG, params, inputs, modes=("int8",))["int8"]
+    assert single["counts"]["dense"] > 0 and single["counts"]["conv"] > 0
+    for r in run_ranks(W.int8_tp_rank, 2, (CFG, params, inputs, None, ("int8",))):
+        assert r["int8"]["counts"] == single["counts"]
+        np.testing.assert_array_equal(r["int8"]["images"], single["images"])
 
 
 # ------------------------------------------------------------ package rules
