@@ -14,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from edgestyle_tpu_torch.core import spans
 from edgestyle_tpu_torch.core.params import param, sub
 from edgestyle_tpu_torch.core.porting import KeyMapper
 from edgestyle_tpu_torch.models.layers import column_parallel, dense, layer_norm_block, row_dense
@@ -77,19 +78,21 @@ class CLIPTextEncoder:
     def __call__(self, p, input_ids: torch.Tensor):
         """input_ids (B, n) int -> {'last_hidden_state': (B, n, C),
         'pooled_output': (B, C) at the argmax (EOS) token}."""
-        cfg, dt = self.cfg, self.dtype
-        table = param(sub(p, "token_embedding"), "embedding",
-                      (cfg.vocab_size, cfg.hidden_size), "embed")
-        pos = param(p, "position_embedding", (cfg.max_positions, cfg.hidden_size), "normal0.01")
-        n = input_ids.shape[1]
-        x = table.to(dt)[input_ids] + pos[None, :n].to(dt)
-        mask = torch.triu(torch.full((n, n), float("-inf"), device=x.device), diagonal=1)
-        for i in range(cfg.num_layers):
-            x = clip_layer(sub(p, f"layers_{i}"), x, mask[None, None], cfg, dt)
-        x = layer_norm_block(sub(p, "final_layer_norm"), x, cfg.layer_norm_eps)
-        eos = input_ids.argmax(dim=-1)
-        pooled = x[torch.arange(x.shape[0], device=x.device), eos]
-        return {"last_hidden_state": x, "pooled_output": pooled}
+        with spans.span(spans.CLIP):
+            cfg, dt = self.cfg, self.dtype
+            table = param(sub(p, "token_embedding"), "embedding",
+                          (cfg.vocab_size, cfg.hidden_size), "embed")
+            pos = param(p, "position_embedding", (cfg.max_positions, cfg.hidden_size),
+                        "normal0.01")
+            n = input_ids.shape[1]
+            x = table.to(dt)[input_ids] + pos[None, :n].to(dt)
+            mask = torch.triu(torch.full((n, n), float("-inf"), device=x.device), diagonal=1)
+            for i in range(cfg.num_layers):
+                x = clip_layer(sub(p, f"layers_{i}"), x, mask[None, None], cfg, dt)
+            x = layer_norm_block(sub(p, "final_layer_norm"), x, cfg.layer_norm_eps)
+            eos = input_ids.argmax(dim=-1)
+            pooled = x[torch.arange(x.shape[0], device=x.device), eos]
+            return {"last_hidden_state": x, "pooled_output": pooled}
 
 
 class CLIPTextModelWithProjection:

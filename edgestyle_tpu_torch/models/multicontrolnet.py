@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from edgestyle_tpu_torch.core import spans
 from edgestyle_tpu_torch.core.params import param, sub
 from edgestyle_tpu_torch.models.unet import SD15UNet, UNetConfig
 from edgestyle_tpu_torch.ops.norms import cast, moments, use_fast
@@ -128,29 +129,32 @@ class EdgeStyleMultiControlNet:
                  guess_mode: bool = False):
         """Returns (12 fused down residuals, fused mid residual).
         ``conditioning_scale``: host per-branch floats."""
-        n = len(self.pattern)
-        scales = np.ones((n,), np.float32) if conditioning_scale is None else \
-            np.asarray(conditioning_scale, np.float32)
-        b = sample.shape[0]
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(b)
-        depth = len(self.down_channels) + 1
-        gs = (np.logspace(-1.0, 0.0, depth).astype(np.float32) if guess_mode
-              else np.ones((depth,), np.float32))
-        down_per_branch: List = [None] * n
-        mid_per_branch: List = [None] * n
-        for grp in self.groups:
-            k = len(grp.positions)
-            down, mid = self.branch.controlnet_forward(
-                sub(params, grp.params_key),
-                torch.cat([sample] * k), torch.cat([timesteps] * k),
-                torch.cat([encoder_hidden_states] * k),
-                torch.cat([cond_embeddings[p] for p in grp.positions]),
-            )
-            for j, p in enumerate(grp.positions):
-                sl = slice(j * b, (j + 1) * b)
-                down_per_branch[p] = [d[sl].float() * float(scales[p] * gs[i])
-                                      for i, d in enumerate(down)]
-                mid_per_branch[p] = mid[sl].float() * float(scales[p] * gs[-1])
-        return edgestyle_fusion(sub(params, "fusion"), down_per_branch, mid_per_branch,
-                                self.down_channels, self.cfg.block_out_channels[-1], self.dtype)
+        with spans.span(spans.MCN):
+            n = len(self.pattern)
+            scales = np.ones((n,), np.float32) if conditioning_scale is None else \
+                np.asarray(conditioning_scale, np.float32)
+            b = sample.shape[0]
+            if timesteps.ndim == 0:
+                timesteps = timesteps.expand(b)
+            depth = len(self.down_channels) + 1
+            gs = (np.logspace(-1.0, 0.0, depth).astype(np.float32) if guess_mode
+                  else np.ones((depth,), np.float32))
+            down_per_branch: List = [None] * n
+            mid_per_branch: List = [None] * n
+            for grp in self.groups:
+                k = len(grp.positions)
+                down, mid = self.branch.controlnet_forward(
+                    sub(params, grp.params_key),
+                    torch.cat([sample] * k), torch.cat([timesteps] * k),
+                    torch.cat([encoder_hidden_states] * k),
+                    torch.cat([cond_embeddings[p] for p in grp.positions]),
+                )
+                for j, p in enumerate(grp.positions):
+                    sl = slice(j * b, (j + 1) * b)
+                    down_per_branch[p] = [d[sl].float() * float(scales[p] * gs[i])
+                                          for i, d in enumerate(down)]
+                    mid_per_branch[p] = mid[sl].float() * float(scales[p] * gs[-1])
+            with spans.span(spans.MCN_FUSION):
+                return edgestyle_fusion(sub(params, "fusion"), down_per_branch, mid_per_branch,
+                                        self.down_channels, self.cfg.block_out_channels[-1],
+                                        self.dtype)

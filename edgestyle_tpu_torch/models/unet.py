@@ -18,6 +18,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from edgestyle_tpu_torch.core import spans
 from edgestyle_tpu_torch.core.params import flatten, sub, unflatten
 from edgestyle_tpu_torch.core.partitioning import kernel_split
 from edgestyle_tpu_torch.core.porting import KeyMapper
@@ -161,20 +162,21 @@ class SD15UNet:
         that :meth:`shallow_forward` splices back on later steps."""
         if self.controlnet_mode:
             raise ValueError("use controlnet_forward for a ControlNet")
-        x, skips, temb = self._trunk(p, sample, timesteps, encoder_hidden_states)
-        if down_block_additional_residuals is not None:
-            skips = [s + r for s, r in zip(skips, down_block_additional_residuals)]
-        if mid_block_additional_residual is not None:
-            x = x + mid_block_additional_residual
-        ctx = encoder_hidden_states.to(self.dtype)
-        n_up = len(self.cfg.block_out_channels)
-        deep = None
-        for i in range(n_up):
-            if i == n_up - 1:
-                deep = x
-            x = self._up_block(p, i, x, skips, temb, ctx)
-        out = self._head(p, x)
-        return (out, deep) if return_deep else out
+        with spans.span(spans.UNET):
+            x, skips, temb = self._trunk(p, sample, timesteps, encoder_hidden_states)
+            if down_block_additional_residuals is not None:
+                skips = [s + r for s, r in zip(skips, down_block_additional_residuals)]
+            if mid_block_additional_residual is not None:
+                x = x + mid_block_additional_residual
+            ctx = encoder_hidden_states.to(self.dtype)
+            n_up = len(self.cfg.block_out_channels)
+            deep = None
+            for i in range(n_up):
+                if i == n_up - 1:
+                    deep = x
+                x = self._up_block(p, i, x, skips, temb, ctx)
+            out = self._head(p, x)
+            return (out, deep) if return_deep else out
 
     def shallow_forward(self, p, sample, timesteps, encoder_hidden_states, deep_feature,
                         down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None):
@@ -187,17 +189,18 @@ class SD15UNet:
         (sample, t) it returns ``__call__``'s output bit for bit."""
         if self.controlnet_mode:
             raise ValueError("shallow_forward is a UNet path, not a ControlNet one")
-        dt = self.dtype
-        temb = self._time_embedding(p, timesteps, sample.shape[0])
-        ctx = encoder_hidden_states.to(dt)
-        x = conv(sub(p, "conv_in"), sample, self.cfg.block_out_channels[0], 3, dt)
-        _, s = self._down_block(p, 0, x, temb, ctx, run_downsample=False)
-        skips = [x] + s
-        if down_block_additional_residuals is not None:
-            skips = [sk + r for sk, r in zip(skips, down_block_additional_residuals)]
-        n_up = len(self.cfg.block_out_channels)
-        x = self._up_block(p, n_up - 1, deep_feature.to(dt), skips, temb, ctx)
-        return self._head(p, x)
+        with spans.span(spans.UNET):
+            dt = self.dtype
+            temb = self._time_embedding(p, timesteps, sample.shape[0])
+            ctx = encoder_hidden_states.to(dt)
+            x = conv(sub(p, "conv_in"), sample, self.cfg.block_out_channels[0], 3, dt)
+            _, s = self._down_block(p, 0, x, temb, ctx, run_downsample=False)
+            skips = [x] + s
+            if down_block_additional_residuals is not None:
+                skips = [sk + r for sk, r in zip(skips, down_block_additional_residuals)]
+            n_up = len(self.cfg.block_out_channels)
+            x = self._up_block(p, n_up - 1, deep_feature.to(dt), skips, temb, ctx)
+            return self._head(p, x)
 
     def embed_cond(self, p, cond):
         """Raw conditioning image (B, 3, H, W) -> (B, 320, H/8, W/8)."""

@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from edgestyle_tpu_torch.core import spans
 from edgestyle_tpu_torch.core.params import sub
 from edgestyle_tpu_torch.core.porting import KeyMapper
 from edgestyle_tpu_torch.models.layers import (
@@ -80,10 +81,11 @@ class AutoencoderKL:
 
     def encode_moments(self, p, x):
         """x: (B, 3, H, W) in [-1, 1] -> (mean, logvar), each (B, 4, H/8, W/8)."""
-        moments = conv(sub(p, "quant_conv"), self._encoder(sub(p, "encoder"), x),
-                       2 * self.cfg.latent_channels, 1, self.dtype, padding=0)
-        mean, logvar = moments.chunk(2, dim=1)
-        return mean, torch.clamp(logvar, -30.0, 20.0)
+        with spans.span(spans.VAE_ENCODE):
+            moments = conv(sub(p, "quant_conv"), self._encoder(sub(p, "encoder"), x),
+                           2 * self.cfg.latent_channels, 1, self.dtype, padding=0)
+            mean, logvar = moments.chunk(2, dim=1)
+            return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def encode(self, p, x, generator: Optional[torch.Generator] = None):
         """Posterior sample, or its mode when no generator is given.
@@ -98,9 +100,10 @@ class AutoencoderKL:
 
     def decode(self, p, z):
         """z: (B, 4, h, w) unscaled latents -> image (B, 3, 8h, 8w)."""
-        z = conv(sub(p, "post_quant_conv"), z, self.cfg.latent_channels, 1, self.dtype,
-                 padding=0)
-        return self._decoder(sub(p, "decoder"), z)
+        with spans.span(spans.VAE_DECODE):
+            z = conv(sub(p, "post_quant_conv"), z, self.cfg.latent_channels, 1, self.dtype,
+                     padding=0)
+            return self._decoder(sub(p, "decoder"), z)
 
     def __call__(self, p, x, generator: Optional[torch.Generator] = None):
         return self.decode(p, self.encode(p, x, generator))

@@ -47,6 +47,7 @@ from edgestyle_tpu_torch.core.device import (
     resolve_device,
     torch_dtype,
 )
+from edgestyle_tpu_torch.core import spans
 from edgestyle_tpu_torch.core.mesh import MODEL_AXIS, gather_rows, rows
 from edgestyle_tpu_torch.core.params import InitTree, flatten, materialize, sub
 from edgestyle_tpu_torch.core.partitioning import shard_params_tp
@@ -409,30 +410,31 @@ class EdgeStylePipeline:
         every step but the last (``num_inference_steps - 1`` latents-shaped
         tensors), which is otherwise drawn from ``generator`` after the
         latents."""
-        cfg_on, cn_sched, deep_sched = self._schedules(
-            num_inference_steps, controlnet_cache_interval, unet_cache_interval, cfg_interval,
-            controlnet_cache_steps, unet_cache_steps)
-        dev = self.device
-        prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
-        negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
-        cond_images = [torch.as_tensor(im).to(dev, torch.float32)
-                       .contiguous(memory_format=torch.channels_last) for im in cond_images]
-        self._check_inputs(prompt_ids, negative_prompt_ids, cond_images,
-                           num_inference_steps, latents)
-        scales = self._step_scales(num_inference_steps, conditioning_scale,
-                                   control_guidance_start, control_guidance_end)
-        g = (guidance_scale if isinstance(guidance_scale, torch.Tensor)
-             else np.asarray(guidance_scale, np.float32))
-        if g.ndim not in (0, 1) or (g.ndim == 1 and g.shape[0] != prompt_ids.shape[0]):
-            raise ValueError(f"guidance_scale must be a scalar or (B,), got {tuple(g.shape)} "
-                             f"for B={prompt_ids.shape[0]}")
-        if self.quant == "int8-static" and self._int8_scales is None:
-            # lazy calibration on the first request's own inputs
-            self.calibrate_int8(params, prompt_ids, negative_prompt_ids, cond_images)
-        return self._generate(params, prompt_ids, negative_prompt_ids, cond_images, generator,
-                              num_inference_steps, g, scales, latents, guess_mode,
-                              cfg_on=cfg_on, cn_sched=cn_sched, deep_sched=deep_sched,
-                              lcm_noise=lcm_noise)
+        with spans.span(spans.GEN):
+            cfg_on, cn_sched, deep_sched = self._schedules(
+                num_inference_steps, controlnet_cache_interval, unet_cache_interval, cfg_interval,
+                controlnet_cache_steps, unet_cache_steps)
+            dev = self.device
+            prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
+            negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
+            cond_images = [torch.as_tensor(im).to(dev, torch.float32)
+                           .contiguous(memory_format=torch.channels_last) for im in cond_images]
+            self._check_inputs(prompt_ids, negative_prompt_ids, cond_images,
+                               num_inference_steps, latents)
+            scales = self._step_scales(num_inference_steps, conditioning_scale,
+                                       control_guidance_start, control_guidance_end)
+            g = (guidance_scale if isinstance(guidance_scale, torch.Tensor)
+                 else np.asarray(guidance_scale, np.float32))
+            if g.ndim not in (0, 1) or (g.ndim == 1 and g.shape[0] != prompt_ids.shape[0]):
+                raise ValueError(f"guidance_scale must be a scalar or (B,), got {tuple(g.shape)} "
+                                 f"for B={prompt_ids.shape[0]}")
+            if self.quant == "int8-static" and self._int8_scales is None:
+                # lazy calibration on the first request's own inputs
+                self.calibrate_int8(params, prompt_ids, negative_prompt_ids, cond_images)
+            return self._generate(params, prompt_ids, negative_prompt_ids, cond_images, generator,
+                                  num_inference_steps, g, scales, latents, guess_mode,
+                                  cfg_on=cfg_on, cn_sched=cn_sched, deep_sched=deep_sched,
+                                  lcm_noise=lcm_noise)
 
     @staticmethod
     def _schedules(num_steps: int, controlnet_cache_interval, unet_cache_interval,

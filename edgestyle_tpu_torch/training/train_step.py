@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from edgestyle_tpu_torch.core import spans
 from edgestyle_tpu_torch.core.mesh import all_mean_grads
 from edgestyle_tpu_torch.core.params import InitTree, flatten, materialize, unflatten
 from edgestyle_tpu_torch.models.multicontrolnet import edgestyle_fusion
@@ -236,12 +237,15 @@ def controlnet_loss_fn(trainable: Dict, frozen: Dict, pipe, sched: DeviceSchedul
                             batch["clothes_openpose2"]], dim=0)
     e1, e3, e5 = pipe.mcn.branch.embed_cond(frozen["static"], conv_conds).split(b)
 
-    cn_params = {
-        "static": frozen["static"],
-        "lora_0": controllora_params(frozen["unet"], trainable["lora_0"], trainable["heads_0"]),
-        "lora_1": controllora_params(frozen["unet"], trainable["lora_1"], trainable["heads_1"]),
-        "fusion": trainable["fusion"],
-    }
+    with spans.span(spans.TRAIN_MERGE_LORA):
+        cn_params = {
+            "static": frozen["static"],
+            "lora_0": controllora_params(frozen["unet"], trainable["lora_0"],
+                                         trainable["heads_0"]),
+            "lora_1": controllora_params(frozen["unet"], trainable["lora_1"],
+                                         trainable["heads_1"]),
+            "fusion": trainable["fusion"],
+        }
     down, mid = pipe.mcn(cn_params, noisy, t, ctx, [e0, e1, e2, e3, e4, e5])
     pred = pipe.unet(frozen["unet"], noisy, t, ctx, down_block_additional_residuals=down,
                      mid_block_additional_residual=mid)
@@ -304,35 +308,40 @@ def make_train_step(pipe, cfg: TrainConfig, data_group=None, model_group=None):
                                                      use_reentrant=False)
         else:
             loss = loss_fn(tree, frozen, mb, dr)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with spans.span(spans.TRAIN_BACKWARD):
+            grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), {k: g.float() for k, g in zip(leaves, grads)}
 
     def train_step(state, frozen, batch, draws):
-        trainable = state["trainable"]
-        if cfg.grad_accum == 1:
-            loss, grads = grads_of(trainable, frozen, {k: v[0] for k, v in batch.items()},
-                                   draws[0])
-            losses = [loss]
-        else:
-            grads = {k: torch.zeros_like(v, dtype=torch.float32)
-                     for k, v in flatten(trainable).items()}
-            losses = []
-            for i in range(cfg.grad_accum):
-                loss, g = grads_of(trainable, frozen, {k: v[i] for k, v in batch.items()},
-                                   draws[i])
-                grads = {k: a + g[k] / cfg.grad_accum for k, a in grads.items()}
-                losses.append(loss)
-        if model_group is not None:
-            grads, losses = all_mean_grads(grads, losses, None)
-        elif data_group is not None:
-            grads, losses = all_mean_grads(grads, losses, data_group)
-        updates, opt_state = opt.update(unflatten(grads), state["opt_state"], trainable)
-        new_state = {"trainable": apply_updates(trainable, updates), "opt_state": opt_state,
-                     "step": state["step"] + 1}
-        if cfg.optimizer == "prodigy":
-            d = get_d(opt_state)
-        else:
-            d = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=pipe.device)
-        return new_state, {"loss": torch.stack(losses).mean(), "d": d}
+        with spans.span(spans.TRAIN_STEP):
+            trainable = state["trainable"]
+            if cfg.grad_accum == 1:
+                loss, grads = grads_of(trainable, frozen, {k: v[0] for k, v in batch.items()},
+                                       draws[0])
+                losses = [loss]
+            else:
+                grads = {k: torch.zeros_like(v, dtype=torch.float32)
+                         for k, v in flatten(trainable).items()}
+                losses = []
+                for i in range(cfg.grad_accum):
+                    loss, g = grads_of(trainable, frozen, {k: v[i] for k, v in batch.items()},
+                                       draws[i])
+                    with spans.span(spans.TRAIN_ACCUMULATE):
+                        grads = {k: a + g[k] / cfg.grad_accum for k, a in grads.items()}
+                    losses.append(loss)
+            if model_group is not None:
+                grads, losses = all_mean_grads(grads, losses, None)
+            elif data_group is not None:
+                grads, losses = all_mean_grads(grads, losses, data_group)
+            with spans.span(spans.TRAIN_OPTIMIZER):
+                updates, opt_state = opt.update(unflatten(grads), state["opt_state"], trainable)
+                new_trainable = apply_updates(trainable, updates)
+            new_state = {"trainable": new_trainable, "opt_state": opt_state,
+                         "step": state["step"] + 1}
+            if cfg.optimizer == "prodigy":
+                d = get_d(opt_state)
+            else:
+                d = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=pipe.device)
+            return new_state, {"loss": torch.stack(losses).mean(), "d": d}
 
     return train_step
